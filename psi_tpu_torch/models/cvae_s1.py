@@ -1,0 +1,82 @@
+"""Stage-1 model: one CVAE over the full 75-D body vector.
+
+Port of ``psi_tpu.models.cvae_s1`` (reference source/cvae.py:411-534):
+scene encoder (ResNet18 trunk, f_dim=32, fc -> latentD), human encoder
+Linear(75 -> latentD) + 2 ResBlocks(2*latentD), a 32-D latent, decoder
+Linear(32 -> latentD) + 2 ResBlocks(2*latentD) -> Linear(75).
+
+``HumanCVAES1`` is a ``SceneEncoder`` with the body CVAE on top: the
+inheritance keeps the reference's flat state-dict keys (resnet.*, conv.*,
+fc.*, linear_in, human_encoder.N.fc1, ...). Sampling takes an explicit
+``torch.Generator`` or explicit latents.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from psi_tpu_torch.models.scene_encoder import SceneEncoder
+from psi_tpu_torch.nn.layers import ResBlock
+from psi_tpu_torch.utils.precision import strict_f32
+
+
+class HumanCVAES1(SceneEncoder):
+    def __init__(
+        self,
+        latentD: int = 256,
+        n_dim_body: int = 75,
+        eps_d: int = 32,
+        scene_in_channels: int = 2,
+        image_size: int = 128,
+    ):
+        super().__init__(f_dim=32, num_hidden=latentD, in_channels=scene_in_channels, image_size=image_size)
+        self.latentD = latentD
+        self.eps_d = eps_d
+        self.linear_in = nn.Linear(n_dim_body, latentD)
+        self.human_encoder = nn.ModuleList([ResBlock(2 * latentD) for _ in range(2)])
+        self.mu_enc = nn.Linear(2 * latentD, eps_d)
+        self.logvar_enc = nn.Linear(2 * latentD, eps_d)
+        self.linear_latent = nn.Linear(eps_d, latentD)
+        self.human_decoder = nn.ModuleList([ResBlock(2 * latentD) for _ in range(2)])
+        self.linear_out = nn.Linear(2 * latentD, n_dim_body)
+
+    def _decode(self, z_h: torch.Tensor, z_s: torch.Tensor) -> torch.Tensor:
+        with strict_f32():
+            z = torch.cat([self.linear_latent(z_h), z_s], dim=1)
+            for rb in self.human_decoder:
+                z = rb(z)
+            return self.linear_out(z)
+
+    def forward(
+        self, x_body: torch.Tensor, x_s: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Training-form forward: (x_rec, mu, logvar); generator=None
+        decodes the posterior mean."""
+        z_s = self.encode_scene(x_s)
+        with strict_f32():
+            z = torch.cat([self.linear_in(x_body), z_s], dim=1)
+            for rb in self.human_encoder:
+                z = rb(z)
+            mu, logvar = self.mu_enc(z), self.logvar_enc(z)
+        z_lat = mu
+        if generator is not None:
+            eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+            z_lat = mu + eps * torch.exp(0.5 * logvar)
+        return self._decode(z_lat, z_s), mu, logvar
+
+    def sample_with_eps(self, x_s: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        """Decode given latents eps [B, eps_d] against snapshots x_s [B, H, W, C]."""
+        return self._decode(eps, self.encode_scene(x_s))
+
+    def sample_n(self, x_s: torch.Tensor, n: int, generator: Optional[torch.Generator] = None,
+                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """n prior draws for ONE snapshot x_s [1, H, W, C]: the trunk runs
+        once and its feature is broadcast over the population. eps [n,
+        eps_d] replaces the draw from ``generator`` when given."""
+        z_s = self.encode_scene(x_s).expand(n, -1)
+        if eps is None:
+            eps = torch.randn((n, self.eps_d), generator=generator, device=z_s.device, dtype=z_s.dtype)
+        return self._decode(eps, z_s)

@@ -1,0 +1,150 @@
+"""Build, load and launch the hand-written CUDA kernels under ``csrc/``.
+
+Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call for ``sm_90a``
+into a shared library with a plain C interface, at first use, under
+``build/kernels/`` beside the package (a directory git ignores). The
+library name carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. The library
+is bound with ``ctypes``: pointers and the stream are ``c_void_p``, from
+``Tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
+
+Each C entry point launches on the stream it is given, allocates
+nothing, and returns ``cudaGetLastError()`` after its launches; a
+``Kernel`` raises when that is not 0 and otherwise counts the launch.
+Nothing here runs when a module is imported: there is no ``nvcc`` on a
+CPU-only machine, and the CPU path never reaches this file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel, into the build log
+]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of every entry point: (argtypes); each returns int (cudaError_t)
+SIGNATURES: Dict[str, List] = {
+    "psi_skin_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "psi_skin_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    "psi_skin_bwd_vtile": [],
+    "psi_nn_argmin": [_P] * 3 + [_I] * 3 + [_P],
+}
+
+_library: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """nvcc from CUDA_HOME, then PATH, then /usr/local/cuda/bin; raises if none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels of psi_tpu_torch need the CUDA toolkit to build"
+    )
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for f in sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libpsi_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu into the hashed shared library unless it exists.
+    The compiler's output (ptxas resource usage) goes to ``<lib>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = out.with_suffix(".log")
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build_library()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _library = lib
+    return _library
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class Kernel:
+    """One hand-written kernel: its C entry point and its launch count.
+
+    ``launches`` is a plain integer, raised by one each time ``launch``
+    runs the kernel and its launch is accepted. Callers that want the
+    count of one run set it to 0 before and read it after.
+    """
+
+    def __init__(self, name: str, symbol: str, source: str, replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.source = source  # path of the CUDA source, relative to the repo root
+        self.replaces = replaces  # the Pallas kernel it ports, file:line
+        self.launches = 0
+
+    def launch(self, device: torch.device, *args) -> None:
+        with torch.cuda.device(device):
+            err = getattr(library(), self.symbol)(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch failed with cudaError {err}")
+        self.launches += 1
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
