@@ -19,6 +19,18 @@ verts), with random weights made from a seed. Phases, one line each:
   7. cross    the same slice at N=16 on the CPU (twins) and on the card
               (kernels) from identical inputs: bounded drift
 
+and then the probe path, the SDF variants and the eval scorers:
+
+  8. P1-P4    python -m psi_tpu_torch.scripts.profile_vmem_gather's
+              support, throughput and relayout phases at the script's
+              shapes: each probe kernel exactly equal to its twin, kernel
+              and twin ms, gathered elements/s; its hbm phase: ns/index of
+              the global packed-row gather. Launch counts of the run.
+  9. sdf      profile_sdf's five SDF lookup variants, one timed rep each
+ 10. eval     the fitted N=256 population of phase 6 scored on the card
+              and on the CPU (collision_contact_scores, diversity_metrics
+              k=20): the scores agree within stated bounds
+
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
 result. The last three lines are the per-kernel JSON, the nvidia-smi
@@ -29,7 +41,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -67,35 +78,23 @@ CROSS_LOSS0_REL_TOL = 1e-4
 CROSS_PERTURB = 1e-6
 CROSS_SENS_FACTOR = 2.0
 CROSS_MAX_TOL, CROSS_MEAN_TOL = 0.25, 0.02
+# P1-P4: gathers copy values and P3/P4 add in the twin's order: exactly
+#     equal (checked inside profile_vmem_gather's phases).
+# eval, card vs CPU on the same fitted bodies: the 'high' decode differs
+#     by f32 rounding, so an SDF within ~1e-6 of 0 may change sign; 1e-4
+#     of the 256 x 10475 vertices is 268 of them.
+EVAL_NONCOLLISION_TOL = 1e-4
+#     contact is one indicator per body: at most one body may differ.
+EVAL_CONTACT_TOL = 1.0 / N_BODIES
+#     k-means draws the same seeds on both devices (a CPU generator); only
+#     f32 distances summed in another order differ, which can flip a
+#     near-tie assignment. One point changing cluster moves the entropy
+#     by at most ~2 log(N) / N = 0.043 at N=256: allow two such flips.
+EVAL_ENTROPY_TOL = 0.1
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median device time of fn() in ms over ``reps`` launches (CUDA events),
-    after one warm-up call."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def body_operands(assets, x72, cam_ext):
@@ -132,6 +131,7 @@ def check_k1(cb, A12, cam12, bundle):
     import torch
 
     from psi_tpu_torch.ops.fused_skinning import fused_skinning_fwd, fused_skinning_fwd_reference
+    from psi_tpu_torch.utils.timing import cuda_ms
 
     verts = fused_skinning_fwd(cb, A12, cam12, bundle)
     ref = fused_skinning_fwd_reference(cb, A12, cam12, bundle)
@@ -150,6 +150,7 @@ def check_k2(cb, A12, cam12, bundle):
     import torch
 
     from psi_tpu_torch.ops.fused_skinning import fused_skinning_bwd, fused_skinning_bwd_reference
+    from psi_tpu_torch.utils.timing import cuda_ms
 
     gen = torch.Generator().manual_seed(SEED + 2)
     g = torch.randn((cb.shape[0], bundle.n_verts, 3), generator=gen).to(cb.device)
@@ -177,6 +178,7 @@ def check_k3(x, y_pruned, y_full):
     import torch
 
     from psi_tpu_torch.ops.chamfer import nn_argmin, nn_argmin_reference
+    from psi_tpu_torch.utils.timing import cuda_ms
 
     out = {}
     for label, y in (("pruned", y_pruned), ("full", y_full)):
@@ -202,6 +204,55 @@ def check_k3(x, y_pruned, y_full):
     return out
 
 
+def check_probes(dev):
+    """Phase 8, the probe path: profile_vmem_gather's entry points, which
+    hold each probe kernel to its twin (exactly equal) and time both.
+    Returns (per-kernel results at the script's shapes, launch counts of
+    the run, the hbm phase's result)."""
+    from psi_tpu_torch.ops.gather_probes import CHAINED_GATHER, KERNELS, LANE_GATHER, RELAYOUT, ROW_GATHER
+    from psi_tpu_torch.scripts import profile_vmem_gather
+
+    for k in KERNELS:
+        k.launches = 0
+    res = profile_vmem_gather.run(dev)
+    launches = {k.name: k.launches for k in KERNELS}
+    log(f"[probes] launches in the probe run {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a probe kernel was not launched: {launches}")
+    rows = {ROW_GATHER.name: res["support"][f"row{profile_vmem_gather.R}"],
+            LANE_GATHER.name: res["support"][f"lane{profile_vmem_gather.R}"],
+            CHAINED_GATHER.name: res["throughput"], RELAYOUT.name: res["relayout"]}
+    return rows, launches, res["hbm"]
+
+
+def check_eval(assets, assets_cpu, x72, cam_ext, scene_idx):
+    """Phase 10: the same fitted bodies scored on the card and on the CPU."""
+    import math
+
+    import torch
+
+    from psi_tpu_torch.eval import collision_contact_scores, diversity_metrics
+
+    t0 = time.time()
+    nc, ct = collision_contact_scores(assets, x72, cam_ext, scene_idx)
+    ent, md = diversity_metrics(x72, k=20)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    nc_c, ct_c = collision_contact_scores(assets_cpu, x72.cpu(), cam_ext.cpu(), scene_idx.cpu())
+    ent_c, md_c = diversity_metrics(x72.cpu(), k=20)
+    log(f"[eval] N={x72.shape[0]} on the card in {card_s:.2f} s: non-collision {nc:.6f} (CPU {nc_c:.6f}, "
+        f"tol {EVAL_NONCOLLISION_TOL}), contact {ct:.6f} (CPU {ct_c:.6f}, tol {EVAL_CONTACT_TOL:.6f}), "
+        f"diversity entropy {ent:.6f} (CPU {ent_c:.6f}, tol {EVAL_ENTROPY_TOL}), mean centroid distance "
+        f"{md:.6f} (CPU {md_c:.6f})")
+    if not (0.0 <= nc <= 1.0 and 0.0 <= ct <= 1.0 and 0.0 <= ent <= math.log(20) + 1e-9 and math.isfinite(md)):
+        raise AssertionError("eval scores out of range")
+    if not (abs(nc - nc_c) <= EVAL_NONCOLLISION_TOL and abs(ct - ct_c) <= EVAL_CONTACT_TOL
+            and abs(ent - ent_c) <= EVAL_ENTROPY_TOL):
+        raise AssertionError("card and CPU eval scores disagree")
+    return {"non_collision": nc, "contact": ct, "entropy": ent, "mean_dist": md,
+            "cpu": {"non_collision": nc_c, "contact": ct_c, "entropy": ent_c, "mean_dist": md_c}}
+
+
 def main() -> None:
     import torch
 
@@ -217,7 +268,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-7 on card ``dev``; raises on the first failure."""
+    """Phases 1-10 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -227,11 +278,14 @@ def smoke(dev) -> None:
     from psi_tpu_torch.ops import _cuda
     from psi_tpu_torch.ops.chamfer import NN_ARGMIN
     from psi_tpu_torch.ops.fused_skinning import SKIN_BWD, SKIN_FWD, fused_skinning_fwd
+    from psi_tpu_torch.ops.gather_probes import KERNELS as PROBES
     from psi_tpu_torch.ops.prune import select_near_tiles
     from psi_tpu_torch.body.smplx_model import make_fused_bundle
     from psi_tpu_torch.utils.config import FitConfig
     from psi_tpu_torch.utils.init import seeded_init_
     from psi_tpu_torch.utils.precision import strict_f32
+    from psi_tpu_torch.scripts import profile_sdf
+    from psi_tpu_torch.utils.timing import nvidia_smi
 
     # ---- 1. device
     smi = nvidia_smi()
@@ -346,14 +400,23 @@ def smoke(dev) -> None:
     if not (card[0] <= tol_max and card[1] <= tol_mean):
         raise AssertionError("CPU and card slices drift apart beyond the fit's own sensitivity")
 
-    # ---- the record
-    rows = []
-    for k, res in ((SKIN_FWD, k1), (SKIN_BWD, k2), (NN_ARGMIN, k3["pruned"])):
-        rows.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-                     "launches": launches[k.name], "max_abs_err": res["max_abs_err"],
-                     "ms": res["ms"], "plain_ms": res["plain_ms"]})
+    # ---- 8. the probe path through P1-P4
+    probes, probe_launches, hbm = check_probes(dev)
+
+    # ---- 9. the SDF lookup variants
+    sdf_ms = profile_sdf.run_variants(dev, reps=1)
+
+    # ---- 10. the eval scorers on the fitted population, card vs CPU
+    scores = check_eval(assets, assets_cpu, x72, cam_ext, scene_idx)
+
+    # ---- the record: each kernel with the launch count of its path's run
+    results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
+    results += [(k, probes[k.name], probe_launches) for k in PROBES]
+    rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+             "launches": counts[k.name], "max_abs_err": res["max_abs_err"],
+             "ms": res["ms"], "plain_ms": res["plain_ms"]} for k, res, counts in results]
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls},
-                    "k3_full_cloud": k3["full"]}))
+                    "k3_full_cloud": k3["full"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -42,6 +42,10 @@ SIGNATURES: Dict[str, List] = {
     "psi_skin_bwd": [_P] * 10 + [_I] * 4 + [_P],
     "psi_skin_bwd_vtile": [],
     "psi_nn_argmin": [_P] * 3 + [_I] * 3 + [_P],
+    "psi_probe_row_gather": [_P] * 3 + [_I] * 2 + [_P],
+    "psi_probe_lane_gather": [_P] * 3 + [_I] * 2 + [_P],
+    "psi_probe_chained_gather": [_P] * 3 + [_I] * 4 + [_P],
+    "psi_probe_relayout": [_P] * 2 + [_I] * 4 + [_P],
 }
 
 _library: Optional[ctypes.CDLL] = None

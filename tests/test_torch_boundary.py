@@ -41,6 +41,29 @@ def test_port_modules_load_without_jax():
     assert len(modules) > 20
 
 
+def test_scripts_and_eval_load_without_jax():
+    """The profiling entry points and the eval scorers, imported alone,
+    leave jax, flax, optax and psi_tpu out of sys.modules."""
+    code = (
+        "import sys\n"
+        "import psi_tpu_torch.eval, psi_tpu_torch.scripts.profile_vmem_gather\n"
+        "import psi_tpu_torch.scripts.profile_gather, psi_tpu_torch.scripts.profile_sdf\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("script", ["profile_vmem_gather", "profile_gather", "profile_sdf"])
+def test_profiling_entry_points_fail_without_a_card(script):
+    """A measurement never falls back to the CPU."""
+    r = _run(["-m", f"psi_tpu_torch.scripts.{script}"], ROOT)
+    assert r.returncode != 0
+    assert "needs an NVIDIA card" in r.stdout + r.stderr
+
+
 def test_no_jax_or_psi_tpu_import_in_port_sources():
     offenders = [
         f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -79,3 +102,14 @@ def test_cuda_tensors_never_fall_back_to_twins(monkeypatch):
     with pytest.raises(ValueError):  # neither cpu nor cuda: refused outright
         chamfer.nn_argmin(x, x)
     assert psi_tpu_torch.__version__
+
+
+def test_probe_wrappers_take_twins_only_for_cpu_tensors():
+    from psi_tpu_torch.ops import gather_probes as gp
+
+    t = torch.zeros((2, 8, 128), device="meta")
+    i = torch.zeros((2, 8, 128), dtype=torch.int32, device="meta")
+    for call in (lambda: gp.row_gather(t[0], i[0]), lambda: gp.lane_gather(t[0], i[0]),
+                 lambda: gp.chained_gather(t, i), lambda: gp.relayout(t)):
+        with pytest.raises(ValueError):  # neither cpu nor cuda: refused outright
+            call()

@@ -1,8 +1,9 @@
-"""The CUDA kernels K1, K2 and K3 against their plain twins, on the card.
+"""The CUDA kernels K1-K3 and P1-P4 against their plain twins, on the card.
 
 Every test here needs an NVIDIA card and skips without one: the kernels
 have no CPU mode, and their twins' agreement with psi_tpu is checked on
-the CPU by test_torch_fused_skinning.py and test_torch_chamfer.py. This
+the CPU by test_torch_fused_skinning.py, test_torch_chamfer.py and
+test_torch_gather_probes.py. This
 file imports neither JAX nor psi_tpu, so it runs on a machine that has
 only PyTorch:
 
@@ -21,6 +22,7 @@ import torch
 from psi_tpu_torch.body.smplx_model import fused_operands, synthetic_smplx
 from psi_tpu_torch.ops import chamfer as tch
 from psi_tpu_torch.ops import fused_skinning as tfs
+from psi_tpu_torch.ops import gather_probes as gp
 
 torch.set_num_threads(1)
 
@@ -176,3 +178,92 @@ def test_nn_argmin_rejects_operands_it_does_not_take(card):
         tch.nn_argmin(x.double(), y.double())
     with pytest.raises(ValueError):
         tch.nn_argmin(x, y.cpu())
+
+
+# P1-P4, the shared-memory gather probes. (rows, L): rows ragged against
+# the 256-row chunk, L ragged against the 16-column strip, and a table tall
+# enough that the strip narrows to 8 columns.
+ROW_SHAPES = [(8, 128), (300, 128), (2304, 128), (5000, 100)]
+# (rows, L): rows ragged against the 16-row block
+LANE_SHAPES = [(8, 128), (37, 128), (2304, 128), (20, 200)]
+# (G, rows, L, n_gathers)
+CHAINED_SHAPES = [(3, 37, 128, 8), (5, 512, 128, 8), (2, 17, 100, 3)]
+# (G, A, B, lanes): G*A*B rows ragged against a block's 8 warps
+RELAYOUT_SHAPES = [(3, 18, 128, 128), (5, 3, 7, 64)]
+
+
+def _table(shape, hi, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, hi, shape).astype(np.int32)).to(dev)
+    return t, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_p1_row_gather_matches_twin(shape, card):
+    t, r = _table(shape, shape[0], card)
+    n = gp.ROW_GATHER.launches
+    out = gp.row_gather(t, r)
+    assert gp.ROW_GATHER.launches == n + 1
+    assert torch.equal(out, gp.row_gather_reference(t, r))  # a gather copies values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+def test_p2_lane_gather_matches_twin(shape, card):
+    t, l = _table(shape, shape[1], card)
+    n = gp.LANE_GATHER.launches
+    out = gp.lane_gather(t, l)
+    assert gp.LANE_GATHER.launches == n + 1
+    assert torch.equal(out, gp.lane_gather_reference(t, l))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHAINED_SHAPES)
+def test_p3_chained_gather_matches_twin(shape, card):
+    G, rows, L, n_gathers = shape
+    t, l = _table((G, rows, L), L, card)
+    n = gp.CHAINED_GATHER.launches
+    out = gp.chained_gather(t, l, n_gathers)
+    assert gp.CHAINED_GATHER.launches == n + 1
+    assert torch.equal(out, gp.chained_gather_reference(t, l, n_gathers))  # the same k order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RELAYOUT_SHAPES)
+def test_p4_relayout_matches_twin(shape, card):
+    G, A, B, lanes = shape
+    c, _ = _table((G, A, B), 1, card)
+    n = gp.RELAYOUT.launches
+    out = gp.relayout(c, 7, lanes)
+    assert gp.RELAYOUT.launches == n + 1
+    assert out.shape == (G, A * B, lanes)
+    assert torch.equal(out, gp.relayout_reference(c, 7, lanes))
+
+
+@pytest.mark.cuda
+def test_p3_takes_indices_mod_L_like_its_twin(card):
+    t, _ = _table((2, 20, 128), 1, card)
+    l = torch.from_numpy(np.random.default_rng(5).integers(-300, 300, (2, 20, 128)).astype(np.int32)).to(card)
+    assert torch.equal(gp.chained_gather(t, l), gp.chained_gather_reference(t, l))
+
+
+@pytest.mark.cuda
+def test_probes_give_nan_for_an_index_outside_the_table(card):
+    t, r = _table((40, 128), 40, card)
+    r[3, 5] = 40
+    l = r.clone()
+    l[3, 5] = -1
+    assert torch.isnan(gp.row_gather(t, r)[3, 5])
+    assert torch.isnan(gp.lane_gather(t, l)[3, 5])
+    assert int(torch.isnan(gp.row_gather(t, r)).sum()) == 1
+
+
+@pytest.mark.cuda
+def test_probes_reject_operands_they_do_not_take(card):
+    t, r = _table((8, 128), 8, card)
+    with pytest.raises(TypeError):
+        gp.row_gather(t, r.long())
+    with pytest.raises(ValueError):
+        gp.lane_gather(t, r.cpu())
