@@ -10,12 +10,16 @@ full SMPL-X width on synthetic assets (10475 verts, 55 joints, 4 scenes,
 verts), with random weights made from a seed. Phases, one line each:
 
   1. device   torch / CUDA versions, the card's name and power limit
-  2. build    nvcc builds csrc/*.cu into build/kernels (seconds printed)
+  2. build    nvcc builds csrc/*.cu into build/kernels (seconds printed);
+              ptxas' registers and spills, and the count of tensor-core
+              (HMMA) instructions in each of K2's kernels from cuobjdump
   3. K1       fused skinning forward vs its plain twin, times
-  4. K2       fused skinning backward vs its twin, two runs bit-equal
+  4. K2       fused skinning backward vs its twin, two runs bit-equal;
+              the time of each of its five launches beside the total
   5. K3       chamfer NN argmin vs its twin at M=2048 and M=20000
   6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6,
-              finite bodies, mean loss falling; then bodies/s
+              finite bodies, mean loss falling, peak device memory; then
+              bodies/s
   7. cross    the same slice at N=16 on the CPU (twins) and on the card
               (kernels) from identical inputs: bounded drift
 
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import json
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -146,6 +151,65 @@ def check_k1(cb, A12, cam12, bundle):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+# K2's kernels that compute a product: each must hold tensor-core instructions
+K2_MMA_KERNELS = ("skin_bwd_coef_kernel", "splitk_gemm_kernel")
+K2_KERNELS = ("skin_bwd_pack_kernel",) + K2_MMA_KERNELS + ("reduce_tiles_kernel",)
+
+
+def hmma_counts(lib_path):
+    """{kernel function: count of tensor-core (HMMA) instructions} in the
+    library's SASS, from the cuobjdump beside nvcc."""
+    from psi_tpu_torch.ops import _cuda
+
+    cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_k2_sass(lib_path):
+    """Phase 2's tensor-core check: HMMA count of each K2 kernel; raises
+    if a kernel that computes a product has none."""
+    counts = hmma_counts(lib_path)
+    found = {}
+    for name in K2_KERNELS:
+        hits = [n for fn, n in counts.items() if name in fn]
+        if not hits:
+            raise AssertionError(f"{name} is not in the library's SASS")
+        found[name] = sum(hits)
+        log(f"[build]   K2 {name}: {found[name]} HMMA instructions")
+    if not all(found[name] > 0 for name in K2_MMA_KERNELS):
+        raise AssertionError(f"a K2 product kernel runs no tensor-core instruction: {found}")
+    return found
+
+
+def k2_stage_ms(cb, A12, cam12, bundle, g):
+    """Device ms of each of K2's launches alone, after one full run that
+    leaves each launch's inputs in the workspace. Direct library calls:
+    they are measurements, not launches of the main path."""
+    from psi_tpu_torch.ops import _cuda
+    from psi_tpu_torch.ops.fused_skinning import BWD_ALL, BWD_STAGES, bwd_operands
+    from psi_tpu_torch.utils.timing import cuda_ms
+
+    args, _, _keep = bwd_operands(cb, A12, cam12, bundle, g)
+    lib, stream = _cuda.library(), _cuda.stream_of(cb)
+
+    def run(stages):
+        err = lib.psi_skin_bwd(*args, stages, stream)
+        if err != 0:
+            raise RuntimeError(f"psi_skin_bwd stages {stages}: cudaError {err}")
+
+    run(BWD_ALL)
+    return {name: cuda_ms(lambda bit=bit: run(bit)) for name, bit in BWD_STAGES}
+
+
 def check_k2(cb, A12, cam12, bundle):
     import torch
 
@@ -164,14 +228,17 @@ def check_k2(cb, A12, cam12, bundle):
     err = max((a - r).abs().max().item() for a, r in zip(run1, ref))
     ms = cuda_ms(lambda: fused_skinning_bwd(cb, A12, cam12, bundle, g))
     plain_ms = cuda_ms(lambda: fused_skinning_bwd_reference(cb, A12, cam12, bundle, g))
+    stage_ms = k2_stage_ms(cb, A12, cam12, bundle, g)
     log(f"[K2] fused_skinning_bwd: max |kernel - twin| / max |twin| = "
         + ", ".join(f"{n} {v:.3e}" for n, v in rel.items())
         + f" (tol {K2_REL_TOL}); two runs bit-equal: {bit_equal}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    log("[K2] launches alone: " + ", ".join(f"{n} {v:.4f} ms" for n, v in stage_ms.items())
+        + f"; sum {sum(stage_ms.values()):.4f} ms; whole K2 call {ms:.4f} ms; twin {plain_ms:.4f} ms")
     if not bit_equal:
         raise AssertionError("K2 is not deterministic")
     if not max(rel.values()) <= K2_REL_TOL:
         raise AssertionError(f"K2 disagrees with its twin: {rel}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "rel_err": rel, "stage_ms": stage_ms}
 
 
 def check_k3(x, y_pruned, y_full):
@@ -300,6 +367,7 @@ def smoke(dev) -> None:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build]   {line.strip()}")
+    hmma = check_k2_sass(lib_path)
 
     # ---- inputs at full width, from the seed
     t0 = time.time()
@@ -336,16 +404,18 @@ def smoke(dev) -> None:
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     x72, _, hist = run(xs, cam_int, max_d, cam_ext, scene_idx,
                        generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     torch.cuda.synchronize()
     first_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches = {k.name: k.launches for k in kernels}
     want = {SKIN_FWD.name: NUM_ITER, SKIN_BWD.name: NUM_ITER, NN_ARGMIN.name: 6}
     loss0, loss_last = hist[0].mean().item(), hist[-1].mean().item()
     log(f"[slice] first call {first_s:.2f} s; launches {launches} (want {want}); "
-        f"mean loss iter 0 {loss0:.6f} -> iter {NUM_ITER - 1} {loss_last:.6f}")
+        f"mean loss iter 0 {loss0:.6f} -> iter {NUM_ITER - 1} {loss_last:.6f}; peak device memory {peak_gb:.4f} GB")
     if launches != want:
         raise AssertionError(f"main path launch counts {launches} != {want}")
     if x72.shape != (N_BODIES, 72) or not torch.isfinite(x72).all():
@@ -415,7 +485,9 @@ def smoke(dev) -> None:
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": counts[k.name], "max_abs_err": res["max_abs_err"],
              "ms": res["ms"], "plain_ms": res["plain_ms"]} for k, res, counts in results]
-    log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls},
+    log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
+                              "peak_gb": peak_gb},
+                    "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"], "hmma": hmma},
                     "k3_full_cloud": k3["full"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores}))
     log(json.dumps({"kernels": rows}))
     log(smi)

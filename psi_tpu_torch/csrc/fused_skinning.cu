@@ -8,53 +8,83 @@
 //   fin_x = cam[b,4x+3] + sum_y cam[b,4x+y] * out_y
 // cb, A12, base and w are bf16; cam and all sums are f32.
 //
-// What bounds it on this card: about 2 * (3C + 12J) = 4.3k FLOP per (b, v)
-// at C=497, J=55 — 11.5 GFLOP for the forward at B=256, V=10475 — against
+// K1 (forward). What bounds it on this card: about 2 * (3C + 12J) = 4.3k
+// FLOP per (b, v) at C=497, J=55 — 11.5 GFLOP at B=256, V=10475 — against
 // 31 MB of bf16 basis that every body reads. The basis fits in the 50 MB L2,
 // so the kernel is bound by L1/L2 traffic and f32 FMA issue, not by HBM.
+// Design (simple first; no tensor cores yet): a 2-D grid over vertex tiles
+// x body tiles. Each block stages its bodies' cb and A12 rows in shared
+// memory as f32 (the bf16 rounding was done by the caller, exactly where
+// the TPU kernel rounds). Each thread computes one (b, v): a warp is 32
+// consecutive vertices of one body, so basis loads are coalesced and the
+// staged rows are smem broadcasts; the block's other warps read the same
+// basis lines from L1.
 //
-// Design (simple first; no tensor cores yet):
-// * K1: a 2-D grid over vertex tiles x body tiles. Each block stages its
-//   bodies' cb and A12 rows in shared memory as f32 (the bf16 rounding was
-//   done by the caller, exactly where the TPU kernel rounds). Each thread
-//   computes one (b, v): a warp is 32 consecutive vertices of one body, so
-//   basis loads are coalesced and the staged rows are smem broadcasts; the
-//   block's other warps read the same basis lines from L1.
-// * K2: the TPU kernel accumulated g_cb / g_A / g_cam serially across its
-//   sequential grid. Blocks here run in no order, so the reduction over
-//   vertices is two passes, with no atomics and therefore bit-identical
-//   results from run to run:
-//   pass 1 — per (vertex tile, body tile) block: recompute vp/T/out for
-//            each (b, v), form the per-vertex coefficients (g_vp_y and the
-//            g_A plane weights rounded to bf16 as the TPU kernel rounds
-//            them, and the f32 g_cam terms) into shared memory, then let
-//            each thread own output columns k and sum over the tile's
-//            vertices in order. Writes partial[tile][b][k].
-//   pass 2 — out[b][k] = sum over tiles in ascending order.
-//   Output columns: k < C -> g_cb; C + 12j + z -> g_A12[b,j,z];
-//   C + 12J + z -> g_cam12[b,z].
+// K2 (backward), on the tensor cores. Every large contraction of
+// _bwd_kernel is a bf16 x bf16 product summed in f32 (the TPU kernel rounds
+// its operands to bf16 before each jnp.dot), and a product of two bf16 is
+// exact in f32, so bf16 mma.sync with f32 accumulators computes the same
+// values up to summation order. K2 is one mainloop (mma_tile: bf16
+// m16n8k16 mma.sync, A and B k-slabs of 32 staged by 16-byte cp.async into
+// a 3-deep shared-memory ring, both operands K-contiguous) used by three
+// launches, between a pack and a fixed-order reduce:
+//   1. pack: cb, the A12 planes and cam, zero-padded to Bp bodies.
+//   2. coefficient pass, grid (body tiles x vertex tiles of 32 x 32):
+//      vp_y = base_vc[y] @ cb^T (K = Cp; the three basis tiles share one
+//      cb tile) and T_z = w_vj @ A12[:,:,z]^T (K = Jp; four A12 planes per
+//      pass share one weight tile): 15 products whose accumulators stay in
+//      registers (each thread owns the same (v, b) points of all 15). The
+//      epilogue forms, per (b, v) in f32, gout_y = sum_x cam[4x+y] g_x and
+//      the 15 bf16 planes coef[15, Bp, Vp], rounded where _bwd_kernel
+//      rounds: g_vp_y, gout_x * vp_y, gout_x. They leave through shared
+//      memory as 16-byte rows. The 12 f32 g_cam terms are summed over the
+//      tile in a fixed order (shuffle butterfly, then the two warp rows).
+//   3. g_cb[Bp, Cp] = sum_y coef[y] @ base_cv[y]^T, split over S vertex
+//      chunks so that the grid fills the 132 SMs: partials [S, Bp, Cp].
+//   4. g_A[12 Bp, Jp] = coef[3:15] @ w_jv^T, the same kernel and split.
+//   5. reduce: each output is the sum of its partials in ascending order,
+//      written in the wrapper's layouts.
+// No atomics anywhere, so two runs give equal bits. All operands are the
+// bundle's zero-padded copies (C to Cp, V to Vp, J to Jp) and the pack's
+// (bodies to Bp), so every row starts 16-byte aligned and no tile is
+// ragged; padded (b, v) points have g = 0 and write zero planes.
+//
+// What bounds K2 at B=256, V=10475 (Vp=10496, Cp=512, Jp=64): 12.4 GFLOP
+// of recompute and 2 B Vp (3 Cp + 12 Jp) = 12.4 GFLOP of reductions, about
+// 0.1 ms at 250 TFLOP/s of mma.sync; about 200 MB of device-memory
+// traffic (g 32 MB read, coef 80 MB written and read back, partials
+// ~15 MB), about 0.06 ms at 3.35 TB/s. The 32 MB bf16 basis in each layout
+// is re-read per body tile from L2 (~490 MB of L2 reads in the coefficient
+// pass). On an H100 the five launches take ~0.42 ms, the coefficient pass
+// ~0.22 of it: its 221 registers a thread leave two 4-warp blocks on an SM,
+// too few warps to hide the ring's latency. A wider body tile on wgmma is
+// the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int FWD_TV = 32;   // vertices per block (threadIdx.x, one warp)
 constexpr int FWD_TB = 8;    // bodies per block (threadIdx.y)
-constexpr int BWD_TV = 128;  // vertices per backward tile
-constexpr int BWD_TB = 4;    // bodies per backward block
-constexpr int BWD_THREADS = 256;
-constexpr int NZ = 27;       // per-(b,v) coefficients: 3 g_vp, 12 g_A, 12 g_cam
+constexpr int BK = 32;       // k per shared-memory slab: two m16n8k16 steps
+constexpr int SK = BK + 8;   // slab row pitch in bf16 (80 B): 16-B rows, conflict-free fragment loads
+constexpr int STAGES = 3;    // slabs in flight in the shared-memory ring
+constexpr int MMA_THREADS = 128;         // 4 warps in every K2 mma block
+constexpr int CF_TV = 32, CF_TB = 32;    // coefficient pass: vertices x bodies per block
+constexpr int RG_TM = 64, RG_TN = 64;    // reductions: output rows x columns per block
+constexpr int NCOEF = 15;    // bf16 planes: 3 g_vp, 12 g_A weights
+constexpr int PAD_B = 64;   // the pack pads the bodies to this multiple
+constexpr int PAD_C = 64, PAD_J = 64, PAD_V = 256;  // multiples psi_skin_bwd requires of the bundle's widths
+constexpr int TARGET_BLOCKS = 264;       // two blocks on each of the 132 SMs
 constexpr int RED_THREADS = 256;
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr size_t SMEM_MAX = 227 * 1024;
 
 __device__ __forceinline__ float bf(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // Stage rows [b0, b0+nb) of a [B, n] bf16 matrix as f32 in shared memory
 // (zeros past B).
@@ -126,111 +156,348 @@ __global__ void skin_fwd_kernel(const __nv_bfloat16* __restrict__ cb,   // [B, C
     dst[x] = cm[4 * x + 3] + cm[4 * x] * o[0] + cm[4 * x + 1] * o[1] + cm[4 * x + 2] * o[2];
 }
 
-__global__ void skin_bwd_partial_kernel(const __nv_bfloat16* __restrict__ cb,
-                                        const __nv_bfloat16* __restrict__ a12,
-                                        const float* __restrict__ cam,
-                                        const __nv_bfloat16* __restrict__ base_cv,  // [3, C, V]
-                                        const __nv_bfloat16* __restrict__ base_vc,  // [3, V, C]
-                                        const __nv_bfloat16* __restrict__ w_jv,     // [J, V]
-                                        const __nv_bfloat16* __restrict__ w_vj,     // [V, J]
-                                        const float* __restrict__ g,                // [B, V, 3]
-                                        float* __restrict__ partial,                // [nvt, B, K]
-                                        int B, int C, int J, int V) {
-  extern __shared__ float smem[];
-  float* cb_s = smem;                         // [BWD_TB][C]
-  float* a_s = cb_s + BWD_TB * C;             // [BWD_TB][J*12]
-  float* coef = a_s + BWD_TB * J * 12;        // [BWD_TB][BWD_TV][NZ]
-  const int tile = blockIdx.x;
-  const int v0 = tile * BWD_TV;
-  const int b0 = blockIdx.y * BWD_TB;
-  const int tid = threadIdx.x;
-  const int K = C + 12 * J + 12;
-  stage_rows(cb_s, cb, b0, BWD_TB, B, C, tid, BWD_THREADS);
-  stage_rows(a_s, a12, b0, BWD_TB, B, J * 12, tid, BWD_THREADS);
-  __syncthreads();
+// ---- K2: the bf16 mma.sync mainloop and its uses
 
-  // phase A: per-(b, v) coefficients
-  for (int i = tid; i < BWD_TB * BWD_TV; i += BWD_THREADS) {
-    const int tb = i / BWD_TV, vl = i % BWD_TV;
-    const int b = b0 + tb, v = v0 + vl;
-    float* cf = coef + (size_t)(tb * BWD_TV + vl) * NZ;
-    if (b >= B || v >= V) {
-#pragma unroll
-      for (int z = 0; z < NZ; ++z) cf[z] = 0.f;
-      continue;
-    }
-    float vp[3], T[12], o[3];
-    recompute(cb_s + tb * C, a_s + tb * J * 12, base_cv, w_jv, C, J, V, v, vp, T);
-    skin_out(vp, T, o);
-    const float* gp = g + ((size_t)b * V + v) * 3;
-    const float gx[3] = {gp[0], gp[1], gp[2]};
-    const float* cm = cam + (size_t)b * 12;
-    float gout[3];
-#pragma unroll
-    for (int y = 0; y < 3; ++y) gout[y] = cm[y] * gx[0] + cm[4 + y] * gx[1] + cm[8 + y] * gx[2];
-#pragma unroll
-    for (int y = 0; y < 3; ++y)
-      cf[y] = round_bf16(gout[0] * T[y] + gout[1] * T[4 + y] + gout[2] * T[8 + y]);
-#pragma unroll
-    for (int x = 0; x < 3; ++x) {
-#pragma unroll
-      for (int y = 0; y < 3; ++y) {
-        cf[3 + 4 * x + y] = round_bf16(gout[x] * vp[y]);
-        cf[15 + 4 * x + y] = gx[x] * o[y];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Operands of one mma_tile call. A holds NA tiles of BM rows, B holds NB
+// tiles of BN rows, `plane` apart; both row-major and K-contiguous (row
+// pitches multiples of 8 bf16, so every 16-byte cp.async is aligned). The
+// K loop runs over `kplanes` planes (`kplane` apart) and, in each, over
+// columns [k0, k1), multiples of BK. Every row in range is valid.
+struct MmaOperands {
+  const __nv_bfloat16* A;
+  int lda;
+  size_t a_plane, a_kplane;
+  const __nv_bfloat16* B;
+  int ldb;
+  size_t b_plane, b_kplane;
+  int kplanes, k0, k1;
+};
+
+template <int BM, int BN, int NA, int NB>
+__host__ __device__ constexpr int stage_elems() { return STAGES * (NA * BM + NB * BN) * SK; }
+
+// The mainloop. A block of MMA_THREADS computes, for every pair (pa < NA, pb < NB),
+//   acc[pa][pb] += sum over K planes q of A_q[pa][0:BM, k0:k1] @ B_q[pb][0:BN, k0:k1]^T
+// through a STAGES-deep ring of BK-slabs in shared memory (`stage`,
+// stage_elems<BM, BN, NA, NB>() bf16), one __syncthreads per slab. Warp w owns
+// rows (w / WARPS_N) * 16MT and columns (w % WARPS_N) * 8NT of each product;
+// acc[..][mt][nt] is the m16n8 tile in mma.sync's layout: elements 0,1 at
+// (row g, cols 2t, 2t+1), 2,3 at row g+8 (g = lane/4, t = lane%4). Returns
+// with every thread past its last read of `stage`.
+template <int BM, int BN, int WARPS_N, int MT, int NT, int NA, int NB>
+__device__ __forceinline__ void mma_tile(const MmaOperands& o, __nv_bfloat16* stage,
+                                         float (&acc)[NA][NB][MT][NT][4]) {
+  static_assert(BM == (MMA_THREADS / 32 / WARPS_N) * 16 * MT && BN == WARPS_N * 8 * NT, "warp tiling");
+  constexpr int ROWS = NA * BM + NB * BN;
+  constexpr int CHUNKS = ROWS * (BK / 8);  // 16-byte copies per slab
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int nk = (o.k1 - o.k0) / BK, n_slabs = nk * o.kplanes;
+
+  auto load = [&](int slab) {
+    if (slab < n_slabs) {
+      const int q = slab / nk, k = o.k0 + (slab % nk) * BK;
+      __nv_bfloat16* dst = stage + (slab % STAGES) * ROWS * SK;
+      const __nv_bfloat16* A = o.A + q * o.a_kplane + k;
+      const __nv_bfloat16* B = o.B + q * o.b_kplane + k;
+      for (int i = tid; i < CHUNKS; i += MMA_THREADS) {
+        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+        const __nv_bfloat16* src;
+        if (r < NA * BM) src = A + (r / BM) * o.a_plane + (size_t)(r % BM) * o.lda + c;
+        else src = B + ((r - NA * BM) / BN) * o.b_plane + (size_t)((r - NA * BM) % BN) * o.ldb + c;
+        cp_async16(dst + r * SK + c, src);
       }
-      cf[3 + 4 * x + 3] = round_bf16(gout[x]);
-      cf[15 + 4 * x + 3] = gx[x];
+    }
+    cp_async_commit();  // possibly empty: wait_group counts stay uniform
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();       // slab s has landed for all; slab s-1's buffer is free
+    load(s + STAGES - 1);  // into slab s-1's buffer
+    const __nv_bfloat16* As = stage + (s % STAGES) * ROWS * SK;
+    const __nv_bfloat16* Bs = As + NA * BM * SK;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[NA][MT][4], b[NB][NT][2];
+#pragma unroll
+      for (int pa = 0; pa < NA; ++pa)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const __nv_bfloat16* p = As + (pa * BM + wm * MT * 16 + mt * 16 + g) * SK + kk + 2 * t;
+          a[pa][mt][0] = ld32(p);
+          a[pa][mt][1] = ld32(p + 8 * SK);
+          a[pa][mt][2] = ld32(p + 8);
+          a[pa][mt][3] = ld32(p + 8 * SK + 8);
+        }
+#pragma unroll
+      for (int pb = 0; pb < NB; ++pb)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const __nv_bfloat16* q = Bs + (pb * BN + wn * NT * 8 + nt * 8 + g) * SK + kk + 2 * t;
+          b[pb][nt][0] = ld32(q);
+          b[pb][nt][1] = ld32(q + 8);
+        }
+#pragma unroll
+      for (int pa = 0; pa < NA; ++pa)
+#pragma unroll
+        for (int pb = 0; pb < NB; ++pb)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[pa][pb][mt][nt], a[pa][mt], b[pb][nt]);
     }
   }
+  cp_async_wait<0>();
   __syncthreads();
+}
 
-  // phase B: each thread owns columns k and sums the tile's vertices in order
-  const int nv = min(BWD_TV, V - v0);
-  const size_t plane = (size_t)V * C;
-  for (int k = tid; k < K; k += BWD_THREADS) {
-    float acc[BWD_TB];
+// Launch 1, pack: the per-body operands, zero-padded to Bp bodies, into the
+// workspace: cb [Bp, Cp], the A12 planes [12, Bp, Jp], cam [Bp, 12].
+__global__ void skin_bwd_pack_kernel(const __nv_bfloat16* __restrict__ cb, const __nv_bfloat16* __restrict__ a12,
+                                     const float* __restrict__ cam, __nv_bfloat16* __restrict__ cbp,
+                                     __nv_bfloat16* __restrict__ a12p, float* __restrict__ camp, int B, int C,
+                                     int J, int Bp, int Cp, int Jp) {
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < Bp * Cp; i += stride) {
+    const int b = i / Cp, c = i % Cp;
+    cbp[i] = b < B && c < C ? cb[(size_t)b * C + c] : zero;
+  }
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 12 * Bp * Jp; i += stride) {
+    const int z = i / (Bp * Jp), b = (i / Jp) % Bp, j = i % Jp;
+    a12p[i] = b < B && j < J ? a12[((size_t)b * J + j) * 12 + z] : zero;
+  }
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < Bp * 12; i += stride)
+    camp[i] = i < B * 12 ? cam[i] : 0.f;
+}
+
+// Launch 2, the coefficient pass. Block (body tile, vertex tile) of 32 x 32,
+// 2 x 2 warps of 16 vertices x 16 bodies. Each thread holds, for its 8 (v, b)
+// points, vp[3] and T[12] in the same accumulator slots.
+constexpr int CF_STAGE = stage_elems<CF_TV, CF_TB, 1, 4>();  // the larger of the two products' rings
+constexpr int CS_PITCH = CF_TV + 8;  // plane rows staged for the stores: 16-B aligned, banks spread
+static_assert(CF_STAGE >= stage_elems<CF_TV, CF_TB, 3, 1>() && CF_STAGE >= NCOEF * CF_TB * CS_PITCH, "coef stage");
+
+__global__ void __launch_bounds__(MMA_THREADS)
+skin_bwd_coef_kernel(const __nv_bfloat16* __restrict__ cbp,       // [Bp, Cp]
+                     const __nv_bfloat16* __restrict__ a12p,      // [12, Bp, Jp]
+                     const float* __restrict__ camp,              // [Bp, 12]
+                     const __nv_bfloat16* __restrict__ base_vcp,  // [3, Vp, Cp]
+                     const __nv_bfloat16* __restrict__ w_vjp,     // [Vp, Jp]
+                     const float* __restrict__ g,                 // [B, V, 3]
+                     __nv_bfloat16* __restrict__ coef,            // [15, Bp, Vp]
+                     float* __restrict__ gcam_part,               // [Vp / CF_TV, Bp, 12]
+                     int B, int V, int Bp, int Cp, int Jp, int Vp) {
+  __shared__ __align__(16) __nv_bfloat16 stage[CF_STAGE];
+  __shared__ float red[2][CF_TB][12];
+  const int b0 = blockIdx.x * CF_TB, v0 = blockIdx.y * CF_TV;
+
+  // vp_y = base_vc[y] @ cb^T: three A tiles share the B tile
+  float vp[3][1][1][2][4] = {};
+  mma_tile<CF_TV, CF_TB, 2, 1, 2, 3, 1>(
+      MmaOperands{base_vcp + (size_t)v0 * Cp, Cp, (size_t)Vp * Cp, 0, cbp + (size_t)b0 * Cp, Cp, 0, 0, 1, 0, Cp},
+      stage, vp);
+  // T_z = w_vj @ A12[:, :, z]^T, four planes z = 4x..4x+3 per pass
+  float T[3][1][4][1][2][4] = {};
 #pragma unroll
-    for (int tb = 0; tb < BWD_TB; ++tb) acc[tb] = 0.f;
-    if (k < C) {
-      for (int vl = 0; vl < nv; ++vl) {
-        const size_t o = (size_t)(v0 + vl) * C + k;
-        const float e0 = bf(base_vc[o]), e1 = bf(base_vc[plane + o]), e2 = bf(base_vc[2 * plane + o]);
+  for (int x = 0; x < 3; ++x)
+    mma_tile<CF_TV, CF_TB, 2, 1, 2, 1, 4>(
+        MmaOperands{w_vjp + (size_t)v0 * Jp, Jp, 0, 0, a12p + ((size_t)4 * x * Bp + b0) * Jp, Jp, (size_t)Bp * Jp,
+                    0, 1, 0, Jp},
+        stage, T[x]);
+
+  // epilogue, per (b, v) in f32: the math and bf16 rounding points of _bwd_kernel.
+  // The 15 planes of the 32 x 32 tile go to shared memory first (the ring is
+  // free), then out as 16-byte rows.
+  __nv_bfloat16* cs = stage;  // [15][CF_TB][CS_PITCH]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gi = lane >> 2, t = lane & 3, wm = warp >> 1, wn = warp & 1;
+  float sc[2][2][12] = {};  // g_cam terms of bodies (nt, parity), summed over this thread's vertices
 #pragma unroll
-        for (int tb = 0; tb < BWD_TB; ++tb) {
-          const float* cf = coef + (size_t)(tb * BWD_TV + vl) * NZ;
-          acc[tb] += cf[0] * e0 + cf[1] * e1 + cf[2] * e2;
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int bl = wn * 16 + nt * 8 + 2 * t + (i & 1), vl = wm * 16 + gi + (i >> 1) * 8;
+      const int b = b0 + bl, v = v0 + vl;
+      float gx[3] = {0.f, 0.f, 0.f};
+      if (b < B && v < V) {
+        const float* gp = g + ((size_t)b * V + v) * 3;
+        gx[0] = gp[0]; gx[1] = gp[1]; gx[2] = gp[2];
+      }
+      const float* cm = camp + (size_t)b * 12;
+      float p[3], Tz[12], o[3], gout[3];
+#pragma unroll
+      for (int y = 0; y < 3; ++y) p[y] = vp[y][0][0][nt][i];
+#pragma unroll
+      for (int z = 0; z < 12; ++z) Tz[z] = T[z / 4][0][z % 4][0][nt][i];
+      skin_out(p, Tz, o);
+#pragma unroll
+      for (int y = 0; y < 3; ++y) gout[y] = cm[y] * gx[0] + cm[4 + y] * gx[1] + cm[8 + y] * gx[2];
+      __nv_bfloat16* cf = cs + bl * CS_PITCH + vl;
+      constexpr int PL = CF_TB * CS_PITCH;
+#pragma unroll
+      for (int y = 0; y < 3; ++y)
+        cf[y * PL] = __float2bfloat16_rn(gout[0] * Tz[y] + gout[1] * Tz[4 + y] + gout[2] * Tz[8 + y]);
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+#pragma unroll
+        for (int y = 0; y < 3; ++y) {
+          cf[(3 + 4 * x + y) * PL] = __float2bfloat16_rn(gout[x] * p[y]);
+          sc[nt][i & 1][4 * x + y] += gx[x] * o[y];
         }
-      }
-    } else if (k < C + 12 * J) {
-      const int j = (k - C) / 12, z = (k - C) % 12;
-      for (int vl = 0; vl < nv; ++vl) {
-        const float wv = bf(w_vj[(size_t)(v0 + vl) * J + j]);
-#pragma unroll
-        for (int tb = 0; tb < BWD_TB; ++tb)
-          acc[tb] = fmaf(coef[(size_t)(tb * BWD_TV + vl) * NZ + 3 + z], wv, acc[tb]);
-      }
-    } else {
-      const int z = k - C - 12 * J;
-      for (int vl = 0; vl < nv; ++vl) {
-#pragma unroll
-        for (int tb = 0; tb < BWD_TB; ++tb) acc[tb] += coef[(size_t)(tb * BWD_TV + vl) * NZ + 15 + z];
+        cf[(3 + 4 * x + 3) * PL] = __float2bfloat16_rn(gout[x]);
+        sc[nt][i & 1][4 * x + 3] += gx[x];
       }
     }
+  }
+  // g_cam: sum over the warp's 16 vertices (lanes of equal t), then its two warp rows
 #pragma unroll
-    for (int tb = 0; tb < BWD_TB; ++tb) {
-      const int b = b0 + tb;
-      if (b < B) partial[((size_t)tile * B + b) * K + k] = acc[tb];
-    }
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int c = 0; c < 12; ++c) {
+        float s = sc[nt][q][c];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (gi == 0) red[wm][wn * 16 + nt * 8 + 2 * t + q][c] = s;
+      }
+  __syncthreads();
+  for (int i = threadIdx.x; i < CF_TB * 12; i += MMA_THREADS) {
+    const int bl = i / 12, c = i % 12;
+    gcam_part[((size_t)blockIdx.y * Bp + b0 + bl) * 12 + c] = red[0][bl][c] + red[1][bl][c];
+  }
+  constexpr int ROW_CHUNKS = CF_TV / 8;  // 16-byte chunks per plane row
+  for (int i = threadIdx.x; i < NCOEF * CF_TB * ROW_CHUNKS; i += MMA_THREADS) {
+    const int pr = i / ROW_CHUNKS, c = (i % ROW_CHUNKS) * 8;  // pr = plane * CF_TB + body
+    const int pl = pr / CF_TB, bl = pr % CF_TB;
+    *reinterpret_cast<uint4*>(coef + ((size_t)pl * Bp + b0 + bl) * Vp + v0 + c) =
+        *reinterpret_cast<const uint4*>(cs + pr * CS_PITCH + c);
   }
 }
 
-__global__ void reduce_tiles_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                    int n_tiles, size_t n) {
-  const size_t i = (size_t)blockIdx.x * RED_THREADS + threadIdx.x;
-  if (i >= n) return;
+// Launches 3 and 4: partial[s] = sum over K planes of A @ B^T over vertex chunk s
+// (slabs [s * per, min((s + 1) * per, n_slabs))), 64 x 64 outputs per block,
+// 2 x 2 warps of 32 x 32.
+__global__ void __launch_bounds__(MMA_THREADS)
+splitk_gemm_kernel(const __nv_bfloat16* __restrict__ A, int lda, size_t a_kplane,
+                   const __nv_bfloat16* __restrict__ B, int ldb, size_t b_kplane, int kplanes,
+                   int per, int n_slabs, float* __restrict__ partial, int ldc, size_t split_stride) {
+  __shared__ __align__(16) __nv_bfloat16 stage[stage_elems<RG_TM, RG_TN, 1, 1>()];
+  const int n0 = blockIdx.x * RG_TN, m0 = blockIdx.y * RG_TM, s = blockIdx.z;
+  float acc[1][1][2][4][4] = {};
+  mma_tile<RG_TM, RG_TN, 2, 2, 4, 1, 1>(
+      MmaOperands{A + (size_t)m0 * lda, lda, 0, a_kplane, B + (size_t)n0 * ldb, ldb, 0, b_kplane, kplanes,
+                  s * per * BK, min(n_slabs, (s + 1) * per) * BK},
+      stage, acc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gi = lane >> 2, t = lane & 3, wm = warp >> 1, wn = warp & 1;
+  float* out = partial + s * split_stride;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float(&d)[4] = acc[0][0][mt][nt];
+      const int r = m0 + wm * 32 + mt * 16 + gi, c = n0 + wn * 32 + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(out + (size_t)r * ldc + c) = make_float2(d[0], d[1]);
+      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * ldc + c) = make_float2(d[2], d[3]);
+    }
+}
+
+// Launch 5: each output the sum of its partials in ascending order, written in
+// the wrapper's layouts: blockIdx.y 0 -> g_cb [B, C] from [S_cb, Bp, Cp];
+// 1 -> g_A12 [B, J, 12] from [S_a, 12, Bp, Jp]; 2 -> g_cam12 [B, 12] from
+// [Vp / CF_TV, Bp, 12].
+__global__ void reduce_tiles_kernel(const float* __restrict__ part_cb, const float* __restrict__ part_a,
+                                    const float* __restrict__ gcam_part, float* __restrict__ g_cb,
+                                    float* __restrict__ g_a, float* __restrict__ g_cam, int s_cb, int s_a,
+                                    int n_vt, int B, int C, int J, int Bp, int Cp, int Jp) {
+  const int i = blockIdx.x * RED_THREADS + threadIdx.x;
+  const float* src;
+  float* dst;
+  int n_tiles;
+  size_t stride;
+  if (blockIdx.y == 0) {
+    if (i >= B * C) return;
+    src = part_cb + (size_t)(i / C) * Cp + i % C;
+    dst = g_cb + i, n_tiles = s_cb, stride = (size_t)Bp * Cp;
+  } else if (blockIdx.y == 1) {
+    if (i >= B * J * 12) return;
+    const int b = i / (J * 12), j = (i / 12) % J, z = i % 12;
+    src = part_a + ((size_t)z * Bp + b) * Jp + j;
+    dst = g_a + i, n_tiles = s_a, stride = (size_t)12 * Bp * Jp;
+  } else {
+    if (i >= B * 12) return;
+    src = gcam_part + i;
+    dst = g_cam + i, n_tiles = n_vt, stride = (size_t)Bp * 12;
+  }
   float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s += partial[(size_t)t * n + i];
-  out[i] = s;
+  for (int t = 0; t < n_tiles; ++t) s += src[t * stride];
+  *dst = s;
+}
+
+// K2's launch plan for padded sizes: the split counts and the workspace carve.
+struct BwdPlan {
+  int n_slabs, per_cb, s_cb, per_a, s_a;
+  size_t off_gcam, off_cb, off_a, off_cbp, off_a12p, off_camp, bytes;  // byte offsets (coef at 0)
+};
+
+size_t align256(size_t x) { return (x + 255) / 256 * 256; }
+
+// The fewest vertex chunks that give TARGET_BLOCKS blocks, as equal as slabs allow.
+void split(int tiles, int n_slabs, int* per, int* s) {
+  int want = (TARGET_BLOCKS + tiles - 1) / tiles;
+  want = std::max(1, std::min(want, n_slabs));
+  *per = (n_slabs + want - 1) / want;
+  *s = (n_slabs + *per - 1) / *per;
+}
+
+BwdPlan bwd_plan(int Bp, int Cp, int Jp, int Vp) {
+  BwdPlan p;
+  p.n_slabs = Vp / BK;
+  split((Cp / RG_TN) * (Bp / RG_TM), p.n_slabs, &p.per_cb, &p.s_cb);
+  split((Jp / RG_TN) * (12 * Bp / RG_TM), p.n_slabs, &p.per_a, &p.s_a);
+  p.off_gcam = align256((size_t)NCOEF * Bp * Vp * sizeof(__nv_bfloat16));
+  p.off_cb = p.off_gcam + align256((size_t)(Vp / CF_TV) * Bp * 12 * sizeof(float));
+  p.off_a = p.off_cb + align256((size_t)p.s_cb * Bp * Cp * sizeof(float));
+  p.off_cbp = p.off_a + align256((size_t)p.s_a * 12 * Bp * Jp * sizeof(float));
+  p.off_a12p = p.off_cbp + align256((size_t)Bp * Cp * sizeof(__nv_bfloat16));
+  p.off_camp = p.off_a12p + align256((size_t)12 * Bp * Jp * sizeof(__nv_bfloat16));
+  p.bytes = p.off_camp + align256((size_t)Bp * 12 * sizeof(float));
+  return p;
+}
+
+int ceil_to(int x, int m) { return (x + m - 1) / m * m; }
+
+bool bwd_shapes_ok(int B, int C, int J, int V, int Cp, int Jp, int Vp) {
+  return B > 0 && C > 0 && J > 0 && V > 0 && C <= Cp && J <= Jp && V <= Vp && Cp % PAD_C == 0 &&
+         Jp % PAD_J == 0 && Vp % PAD_V == 0;
 }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
@@ -241,8 +508,6 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 }
 
 }  // namespace
-
-extern "C" int psi_skin_bwd_vtile() { return BWD_TV; }
 
 extern "C" int psi_skin_fwd(const void* cb, const void* a12, const void* cam, const void* base,
                             const void* w_jv, void* out, int B, int C, int J, int V, void* stream) {
@@ -258,24 +523,68 @@ extern "C" int psi_skin_fwd(const void* cb, const void* a12, const void* cam, co
   return cudaGetLastError();
 }
 
-extern "C" int psi_skin_bwd(const void* cb, const void* a12, const void* cam, const void* base_cv,
-                            const void* base_vc, const void* w_jv, const void* w_vj, const void* g,
-                            void* partial, void* out, int B, int C, int J, int V, void* stream) {
-  if (B <= 0 || C <= 0 || J <= 0 || V <= 0) return cudaErrorInvalidValue;
-  const size_t smem =
-      ((size_t)BWD_TB * (C + 12 * J) + (size_t)BWD_TB * BWD_TV * NZ) * sizeof(float);
-  cudaError_t err = set_smem((const void*)skin_bwd_partial_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (V + BWD_TV - 1) / BWD_TV;
-  const dim3 grid(n_tiles, (B + BWD_TB - 1) / BWD_TB);
-  skin_bwd_partial_kernel<<<grid, BWD_THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)cb, (const __nv_bfloat16*)a12, (const float*)cam,
-      (const __nv_bfloat16*)base_cv, (const __nv_bfloat16*)base_vc, (const __nv_bfloat16*)w_jv,
-      (const __nv_bfloat16*)w_vj, (const float*)g, (float*)partial, B, C, J, V);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t n = (size_t)B * (C + 12 * J + 12);
-  reduce_tiles_kernel<<<(unsigned)((n + RED_THREADS - 1) / RED_THREADS), RED_THREADS, 0,
-                        (cudaStream_t)stream>>>((const float*)partial, (float*)out, n_tiles, n);
-  return cudaGetLastError();
+// Workspace bytes psi_skin_bwd needs for B bodies and the bundle's padded
+// widths Cp, Jp, Vp (0 if they are not multiples of PAD_C, PAD_J, PAD_V).
+extern "C" size_t psi_skin_bwd_workspace(int B, int Cp, int Jp, int Vp) {
+  if (!bwd_shapes_ok(B, 1, 1, 1, Cp, Jp, Vp)) return 0;
+  return bwd_plan(ceil_to(B, PAD_B), Cp, Jp, Vp).bytes;
+}
+
+// K2: (g_cb [B, C], g_A12 [B, J, 12], g_cam12 [B, 12]) from cb [B, C] and
+// A12 [B, J, 12] (bf16), cam [B, 12] and g [B, V, 3] (f32), and the bundle's
+// operands zero-padded to Cp, Jp, Vp. `stages` selects the launches (1 pack,
+// 2 coefficient pass, 4 g_cb reduction, 8 g_A reduction, 16 reduce; 31 runs
+// all five): a launch reads what the earlier ones left in the workspace, so
+// a subset is only for timing one launch after a full run.
+extern "C" int psi_skin_bwd(const void* cb, const void* a12, const void* cam, const void* base_cvp,
+                            const void* base_vcp, const void* w_jvp, const void* w_vjp, const void* g,
+                            void* work, void* g_cb, void* g_a, void* g_cam, int B, int C, int J, int V,
+                            int Cp, int Jp, int Vp, int stages, void* stream) {
+  if (!bwd_shapes_ok(B, C, J, V, Cp, Jp, Vp)) return cudaErrorInvalidValue;
+  const int Bp = ceil_to(B, PAD_B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const BwdPlan p = bwd_plan(Bp, Cp, Jp, Vp);
+  char* ws = (char*)work;
+  __nv_bfloat16* coef = (__nv_bfloat16*)ws;
+  float* gcam_part = (float*)(ws + p.off_gcam);
+  float* part_cb = (float*)(ws + p.off_cb);
+  float* part_a = (float*)(ws + p.off_a);
+  __nv_bfloat16* cbp = (__nv_bfloat16*)(ws + p.off_cbp);
+  __nv_bfloat16* a12p = (__nv_bfloat16*)(ws + p.off_a12p);
+  float* camp = (float*)(ws + p.off_camp);
+  const size_t plane = (size_t)Bp * Vp;
+  cudaError_t err;
+  if (stages & 1) {
+    const int n = std::max(Bp * Cp, 12 * Bp * Jp);
+    skin_bwd_pack_kernel<<<(n + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, st>>>(
+        (const __nv_bfloat16*)cb, (const __nv_bfloat16*)a12, (const float*)cam, cbp, a12p, camp, B, C, J, Bp,
+        Cp, Jp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (stages & 2) {
+    skin_bwd_coef_kernel<<<dim3(Bp / CF_TB, Vp / CF_TV), MMA_THREADS, 0, st>>>(
+        cbp, a12p, camp, (const __nv_bfloat16*)base_vcp, (const __nv_bfloat16*)w_vjp, (const float*)g, coef,
+        gcam_part, B, V, Bp, Cp, Jp, Vp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (stages & 4) {  // g_cb[Bp, Cp] = sum_y coef[y] @ base_cv[y]^T
+    splitk_gemm_kernel<<<dim3(Cp / RG_TN, Bp / RG_TM, p.s_cb), MMA_THREADS, 0, st>>>(
+        coef, Vp, plane, (const __nv_bfloat16*)base_cvp, Vp, (size_t)Cp * Vp, 3, p.per_cb, p.n_slabs, part_cb,
+        Cp, (size_t)Bp * Cp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (stages & 8) {  // g_A[12 Bp, Jp] = coef[3:15] @ w_jv^T
+    splitk_gemm_kernel<<<dim3(Jp / RG_TN, 12 * Bp / RG_TM, p.s_a), MMA_THREADS, 0, st>>>(
+        coef + 3 * plane, Vp, 0, (const __nv_bfloat16*)w_jvp, Vp, 0, 1, p.per_a, p.n_slabs, part_a, Jp,
+        (size_t)12 * Bp * Jp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (stages & 16) {
+    const int n = std::max(B * C, B * J * 12);
+    reduce_tiles_kernel<<<dim3((n + RED_THREADS - 1) / RED_THREADS, 3), RED_THREADS, 0, st>>>(
+        part_cb, part_a, gcam_part, (float*)g_cb, (float*)g_a, (float*)g_cam, p.s_cb, p.s_a, Vp / CF_TV, B, C,
+        J, Bp, Cp, Jp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }

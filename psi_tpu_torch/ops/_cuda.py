@@ -37,16 +37,18 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point: (argtypes); each returns int (cudaError_t)
+# unless RESTYPES says otherwise
 SIGNATURES: Dict[str, List] = {
     "psi_skin_fwd": [_P] * 6 + [_I] * 4 + [_P],
-    "psi_skin_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    "psi_skin_bwd_vtile": [],
+    "psi_skin_bwd": [_P] * 12 + [_I] * 8 + [_P],
+    "psi_skin_bwd_workspace": [_I] * 4,
     "psi_nn_argmin": [_P] * 3 + [_I] * 3 + [_P],
     "psi_probe_row_gather": [_P] * 3 + [_I] * 2 + [_P],
     "psi_probe_lane_gather": [_P] * 3 + [_I] * 2 + [_P],
     "psi_probe_chained_gather": [_P] * 3 + [_I] * 4 + [_P],
     "psi_probe_relayout": [_P] * 2 + [_I] * 4 + [_P],
 }
+RESTYPES = {"psi_skin_bwd_workspace": ctypes.c_size_t}
 
 _library: Optional[ctypes.CDLL] = None
 
@@ -110,7 +112,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _library = lib
     return _library
 

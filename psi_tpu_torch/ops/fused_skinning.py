@@ -44,18 +44,32 @@ SKIN_BWD = _cuda.Kernel(
 )
 
 
+# The bundle pads C, J and V for K2 to these multiples, which
+# csrc/fused_skinning.cu (PAD_*) requires and checks; K2 pads the bodies itself.
+PAD_C, PAD_J, PAD_V = 64, 64, 256
+# K2's launches, the bits of psi_skin_bwd's `stages`, in launch order
+BWD_STAGES = (("pack", 1), ("coef", 2), ("g_cb", 4), ("g_A", 8), ("reduce", 16))
+BWD_ALL = 31
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 class SkinningBundle(NamedTuple):
     """Constant operands of the fused kernels, built once per fit call.
 
-    Both layouts of each operand are kept: the [*, V] ones are read by
-    vertex-parallel threads (forward, and the backward's recompute), the
-    [V, *] ones by output-parallel threads (the backward's reductions).
-    Nothing is padded: the kernels mask their own ragged edges."""
+    K1 reads the unpadded [*, V] layouts and masks its own ragged edges.
+    K2 reads zero-padded copies of both layouts (C to Cp, V to Vp, J to Jp;
+    see PAD_*), so that every row starts 16-byte aligned for its cp.async
+    copies and no tile is ragged. The twins read the valid region."""
 
     base_cv: torch.Tensor  # [3, C, V] bf16: rows [v_template | shapedirs | posedirs]
-    base_vc: torch.Tensor  # [3, V, C] bf16
     w_jv: torch.Tensor  # [J, V] bf16 skinning weights
-    w_vj: torch.Tensor  # [V, J] bf16
+    base_cvp: torch.Tensor  # [3, Cp, Vp] bf16, zero-padded
+    base_vcp: torch.Tensor  # [3, Vp, Cp] bf16
+    w_jvp: torch.Tensor  # [Jp, Vp] bf16
+    w_vjp: torch.Tensor  # [Vp, Jp] bf16
     n_verts: int
     n_feat: int
 
@@ -66,20 +80,28 @@ def make_skinning_bundle(
     posedirs: Optional[torch.Tensor],  # [(J-1)*9, V*3] or None
     lbs_weights: torch.Tensor,  # [V, J]
 ) -> SkinningBundle:
-    V = v_template.shape[0]
+    V, J = lbs_weights.shape
     parts = [v_template.T[:, None, :], shapedirs.permute(1, 2, 0)]
     if posedirs is not None:
         P = posedirs.shape[0]
         parts.append(posedirs.reshape(P, V, 3).permute(2, 0, 1))
     base = torch.cat(parts, dim=1).to(torch.bfloat16)  # [3, C, V]
-    w = lbs_weights.to(torch.bfloat16)
+    w_jv = lbs_weights.T.to(torch.bfloat16)
+    C = base.shape[1]
+    Cp, Jp, Vp = _ceil_to(C, PAD_C), _ceil_to(J, PAD_J), _ceil_to(V, PAD_V)
+    base_cvp = base.new_zeros((3, Cp, Vp))
+    base_cvp[:, :C, :V] = base
+    w_jvp = w_jv.new_zeros((Jp, Vp))
+    w_jvp[:J, :V] = w_jv
     return SkinningBundle(
         base_cv=base.contiguous(),
-        base_vc=base.transpose(1, 2).contiguous(),
-        w_jv=w.T.contiguous(),
-        w_vj=w.contiguous(),
+        w_jv=w_jv.contiguous(),
+        base_cvp=base_cvp,
+        base_vcp=base_cvp.transpose(1, 2).contiguous(),
+        w_jvp=w_jvp,
+        w_vjp=w_jvp.T.contiguous(),
         n_verts=V,
-        n_feat=base.shape[1],
+        n_feat=C,
     )
 
 
@@ -136,13 +158,14 @@ def fused_skinning_bwd_reference(
         cam[:, y, None] * gx[0] + cam[:, 4 + y, None] * gx[1] + cam[:, 8 + y, None] * gx[2]
         for y in range(3)
     ]
-    base_vc = bundle.base_vc.to(torch.float32)
+    V, C, J = bundle.n_verts, bundle.n_feat, A12.shape[1]
+    base_vc = bundle.base_vcp[:, :V, :C].to(torch.float32)
     g_cb = 0
     for y in range(3):
         g_vp = gout[0] * T[:, y] + gout[1] * T[:, 4 + y] + gout[2] * T[:, 8 + y]
         g_cb = g_cb + g_vp.to(bf16).to(torch.float32) @ base_vc[y]
 
-    w_vj = bundle.w_vj.to(torch.float32)
+    w_vj = bundle.w_vjp[:V, :J].to(torch.float32)
     planes = []
     for x in range(3):
         planes.extend((gout[x] * vp[:, y]).to(bf16).to(torch.float32) @ w_vj for y in range(3))
@@ -159,9 +182,7 @@ def _check_operands(cb, A12, cam12, bundle: SkinningBundle):
     if C != bundle.n_feat:
         raise ValueError(f"cb has {C} coefficients, the bundle basis {bundle.n_feat}")
     _cuda.check(bundle.base_cv, "base_cv", torch.bfloat16, (3, C, V), dev)
-    _cuda.check(bundle.base_vc, "base_vc", torch.bfloat16, (3, V, C), dev)
     _cuda.check(bundle.w_jv, "w_jv", torch.bfloat16, (J, V), dev)
-    _cuda.check(bundle.w_vj, "w_vj", torch.bfloat16, (V, J), dev)
     cb16 = cb.detach().to(torch.bfloat16).contiguous()
     a16 = A12.detach().to(torch.bfloat16).contiguous()
     cam = cam12.detach().to(torch.float32).contiguous()
@@ -186,29 +207,37 @@ def fused_skinning_fwd(cb, A12, cam12, bundle: SkinningBundle) -> torch.Tensor:
     return out
 
 
+def bwd_operands(cb, A12, cam12, bundle: SkinningBundle, g: torch.Tensor):
+    """K2's launch: (the arguments of psi_skin_bwd before `stages` and the
+    stream, the outputs (g_cb, g_A12, g_cam12) that the launch fills, the
+    tensors behind the pointers, to be kept alive until the launch)."""
+    cb16, a16, cam, (B, C, J, V) = _check_operands(cb, A12, cam12, bundle)
+    dev = cb.device
+    (Cp, Vp), Jp = bundle.base_cvp.shape[1:], bundle.w_jvp.shape[0]  # K2 checks the multiples
+    _cuda.check(bundle.base_cvp, "base_cvp", torch.bfloat16, (3, Cp, Vp), dev)
+    _cuda.check(bundle.base_vcp, "base_vcp", torch.bfloat16, (3, Vp, Cp), dev)
+    _cuda.check(bundle.w_jvp, "w_jvp", torch.bfloat16, (Jp, Vp), dev)
+    _cuda.check(bundle.w_vjp, "w_vjp", torch.bfloat16, (Vp, Jp), dev)
+    g = g.detach().to(torch.float32).contiguous()
+    _cuda.check(g, "g", torch.float32, (B, V, 3), dev)
+    work = torch.empty(_cuda.library().psi_skin_bwd_workspace(B, Cp, Jp, Vp), dtype=torch.uint8, device=dev)
+    outs = tuple(torch.empty(s, dtype=torch.float32, device=dev) for s in ((B, C), (B, J, 12), (B, 12)))
+    tensors = (cb16, a16, cam, bundle.base_cvp, bundle.base_vcp, bundle.w_jvp, bundle.w_vjp, g, work, *outs)
+    return (*(t.data_ptr() for t in tensors), B, C, J, V, Cp, Jp, Vp), outs, tensors
+
+
 def fused_skinning_bwd(cb, A12, cam12, bundle: SkinningBundle, g: torch.Tensor):
     """(g_cb, g_A12, g_cam12): K2 on a CUDA tensor, the twin on a CPU tensor.
 
-    K2 is deterministic: per-vertex-tile partials, then a fixed-order
-    reduction, with no atomics."""
+    K2 is deterministic: split-K partials, then a fixed-order reduction,
+    with no atomics."""
     if cb.device.type == "cpu":
         return fused_skinning_bwd_reference(cb, A12, cam12, bundle, g)
     if cb.device.type != "cuda":
         raise ValueError(f"fused skinning runs on cpu or cuda tensors, got {cb.device}")
-    cb16, a16, cam, (B, C, J, V) = _check_operands(cb, A12, cam12, bundle)
-    g = g.detach().to(torch.float32).contiguous()
-    _cuda.check(g, "g", torch.float32, (B, V, 3), cb.device)
-    vtile = _cuda.library().psi_skin_bwd_vtile()
-    K = C + 12 * J + 12
-    partial = torch.empty((-(-V // vtile), B, K), dtype=torch.float32, device=cb.device)
-    out = torch.empty((B, K), dtype=torch.float32, device=cb.device)
-    SKIN_BWD.launch(
-        cb.device, cb16.data_ptr(), a16.data_ptr(), cam.data_ptr(),
-        bundle.base_cv.data_ptr(), bundle.base_vc.data_ptr(),
-        bundle.w_jv.data_ptr(), bundle.w_vj.data_ptr(), g.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), B, C, J, V, _cuda.stream_of(cb),
-    )
-    return out[:, :C], out[:, C : C + 12 * J].reshape(B, J, 12), out[:, C + 12 * J :]
+    args, outs, _ = bwd_operands(cb, A12, cam12, bundle, g)
+    SKIN_BWD.launch(cb.device, *args, BWD_ALL, _cuda.stream_of(cb))
+    return outs
 
 
 class _FusedSkinning(torch.autograd.Function):

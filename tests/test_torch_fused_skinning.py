@@ -51,7 +51,8 @@ def _t(ops):
 
 
 def test_bundle_matches_jax_layout(setup):
-    """The unpadded bundle holds exactly psi_tpu's bf16 basis and weights."""
+    """The bundle holds exactly psi_tpu's bf16 basis and weights: K1's
+    unpadded layouts, and the valid region of K2's padded ones."""
     jb, tb, _, _ = setup
     C = tb.n_feat
     assert (tb.n_verts, C) == (jb.n_verts, jb.n_feat) == (V, 1 + 10 + (J - 1) * 9)
@@ -59,9 +60,9 @@ def test_bundle_matches_jax_layout(setup):
         np.testing.assert_array_equal(
             tb.base_cv[y].float().numpy(), np.asarray(jb.base_cv[y][:C, :V].astype(jnp.float32))
         )
-        np.testing.assert_array_equal(tb.base_vc[y].float().numpy(), tb.base_cv[y].float().numpy().T)
-    np.testing.assert_array_equal(tb.w_vj.float().numpy(), np.asarray(jb.w_vj[:V, :J].astype(jnp.float32)))
-    np.testing.assert_array_equal(tb.w_jv.float().numpy(), tb.w_vj.float().numpy().T)
+        np.testing.assert_array_equal(tb.base_vcp[y, :V, :C].float().numpy(), tb.base_cv[y].float().numpy().T)
+    np.testing.assert_array_equal(tb.w_vjp[:V, :J].float().numpy(), np.asarray(jb.w_vj[:V, :J].astype(jnp.float32)))
+    np.testing.assert_array_equal(tb.w_jv.float().numpy(), tb.w_vjp[:V, :J].float().numpy().T)
 
 
 def test_k1_twin_matches_pallas_interpret(setup):

@@ -26,8 +26,11 @@ from psi_tpu_torch.ops import gather_probes as gp
 
 torch.set_num_threads(1)
 
-# (B, V, J): the CPU parity shape, and a ragged one at SMPL-X's joint count
-SKIN_SHAPES = [(5, 300, 12), (13, 1001, 55)]
+# (B, V, J): the CPU parity shape, a ragged one at SMPL-X's joint count, and
+# one that spans several of K2's body and vertex tiles (32 x 32 in the
+# coefficient pass, 64-row blocks in the reductions) and is ragged on every
+# padded axis (bodies to 64, vertices to 256, basis rows to 64)
+SKIN_SHAPES = [(5, 300, 12), (13, 1001, 55), (130, 2051, 55)]
 # (B, N, M): N ragged against 256 threads, M across and ragged against 1024-point tiles
 NN_SHAPES = [(3, 200, 700), (2, 300, 3000)]
 
@@ -62,7 +65,7 @@ def _skinning_case(shape, dev):
             cam_ext=t(cam),
         )[:3]
     bundle = tfs.make_skinning_bundle(model.v_template, model.shapedirs, model.posedirs, model.lbs_weights)
-    bundle = tfs.SkinningBundle(*(x.to(dev) for x in bundle[:4]), bundle.n_verts, bundle.n_feat)
+    bundle = tfs.SkinningBundle(*(x.to(dev) for x in bundle[:6]), bundle.n_verts, bundle.n_feat)
     g = t(rng.normal(0, 1.0, (B, V, 3)))
     return bundle, tuple(o.to(dev) for o in ops), g.to(dev)
 
@@ -118,6 +121,21 @@ def test_skinning_rejects_operands_it_does_not_take(card):
         tfs.fused_skinning_fwd(cb[:, :-1].contiguous(), A12, cam12, bundle)
     with pytest.raises(ValueError):  # bundle left on another device
         tfs.fused_skinning_fwd(cb, A12, cam12, bundle._replace(w_jv=bundle.w_jv.cpu()))
+
+
+@pytest.mark.cuda
+def test_k2_rejects_padding_it_does_not_take(card):
+    """K2 tiles the bundle's padded widths without ragged edges: a width
+    that is not a multiple of its tiles is refused, not read past."""
+    bundle, ops, g = _skinning_case(SKIN_SHAPES[0], card)
+    Vp = bundle.base_cvp.shape[2] - 8  # still >= V, no longer a multiple of 256
+    cut = bundle._replace(base_cvp=bundle.base_cvp[:, :, :Vp].contiguous(),
+                          base_vcp=bundle.base_vcp[:, :Vp].contiguous(),
+                          w_jvp=bundle.w_jvp[:, :Vp].contiguous(), w_vjp=bundle.w_vjp[:Vp].contiguous())
+    n = tfs.SKIN_BWD.launches
+    with pytest.raises(RuntimeError):
+        tfs.fused_skinning_bwd(*ops, cut, g)
+    assert tfs.SKIN_BWD.launches == n
 
 
 def _clouds(shape, dev):
