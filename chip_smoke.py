@@ -12,8 +12,11 @@ verts), with random weights made from a seed. Phases, one line each:
   1. device   torch / CUDA versions, the card's name and power limit
   2. build    nvcc builds csrc/*.cu into build/kernels (seconds printed);
               ptxas' registers and spills, and the count of tensor-core
-              (HMMA) instructions in each of K2's kernels from cuobjdump
-  3. K1       fused skinning forward vs its plain twin, times
+              (HMMA) instructions in each of K1's and K2's kernels from
+              cuobjdump
+  3. K1       fused skinning forward vs its plain twin, two runs
+              bit-equal; the time of each of its two launches beside the
+              whole call, its registers and shared memory, its bound
   4. K2       fused skinning backward vs its twin, two runs bit-equal;
               the time of each of its five launches beside the total
   5. K3       chamfer NN argmin vs its twin at M=2048 and M=20000
@@ -38,7 +41,12 @@ and then the probe path, the SDF variants and the eval scorers:
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
 result. The last three lines are the per-kernel JSON, the nvidia-smi
-line, and {"ok": true, "device": {...}}.
+line, and {"ok": true, "device": {...}}. Each kernel's row carries its
+bound: the least time the card could take for the same work, the larger of
+the bytes the function must move (each input read once, each output written
+once) over the card's memory rate and its operations over the card's peak
+rate for their type (PEAK below), from this run's shapes; and, where one
+PyTorch call computes the same function, that call's time (library_ms).
 """
 
 from __future__ import annotations
@@ -98,8 +106,37 @@ EVAL_CONTACT_TOL = 1.0 / N_BODIES
 EVAL_ENTROPY_TOL = 0.1
 
 
+# Published peaks of one NVIDIA H100 SXM at its full 700 W (NVIDIA's data
+# sheet, dense rates): device memory bytes/s, bf16 tensor-core FLOP/s, f32
+# FLOP/s outside the tensor cores.
+PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, **ops: float) -> dict:
+    """{"bound_ms", "bound_by"} of a function that must move ``nbytes`` and do
+    ``ops`` operations, given by type (bf16=..., f32=...)."""
+    t_bytes = nbytes / PEAK["bytes"] * 1e3
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items()) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def skinning_bounds(B: int, C: int, J: int, V: int) -> tuple:
+    """(K1's bound, K2's bound). Both read cb, A12 (bf16), cam (f32) and the
+    bf16 basis [3, C, V] and weights [J, V] once. K1 writes verts [B, V, 3]
+    f32; its products are 2 B V (3C + 12J) bf16 operations, its epilogue 36
+    f32 operations a vertex. K2 also reads g [B, V, 3] and writes the three
+    small gradients; it does the products twice (recompute, reductions) and
+    78 f32 operations a vertex between them."""
+    operands = 2 * B * C + 2 * B * J * 12 + 4 * B * 12 + 2 * 3 * C * V + 2 * J * V
+    verts = 4 * B * V * 3
+    products = 2 * B * V * (3 * C + 12 * J)
+    k1 = bound(operands + verts, bf16=products, f32=36 * B * V)
+    k2 = bound(operands + verts + 4 * (B * C + B * J * 12 + B * 12), bf16=2 * products, f32=78 * B * V)
+    return k1, k2
 
 
 def body_operands(assets, x72, cam_ext):
@@ -117,43 +154,72 @@ def body_operands(assets, x72, cam_ext):
     return cb, A12, cam12
 
 
-def floor_placement(x72, grid_min, grid_max):
-    """Camera extrinsics [N, 4, 4] (identity rotation) that move the
-    population's mean translation to the middle of the scene's x/z extent
-    at 0.8 * grid_min's height — into the synthetic floor, as
-    tests/test_gen_fit_eval.py::test_fitting_reduces_scene_losses places
-    its bodies — so the fit has penetration to remove."""
+def stage_ms(symbol: str, args, stages, all_stages: int, stream) -> dict:
+    """Device ms of each launch of a multi-launch kernel alone, after one
+    full run that leaves each launch's inputs in the workspace. Direct
+    library calls: they are measurements, not launches of the main path."""
+    from psi_tpu_torch.ops import _cuda
+    from psi_tpu_torch.utils.timing import cuda_ms
+
+    fn = getattr(_cuda.library(), symbol)
+
+    def run(bits):
+        err = fn(*args, bits, stream)
+        if err != 0:
+            raise RuntimeError(f"{symbol} stages {bits}: cudaError {err}")
+
+    run(all_stages)
+    return {name: cuda_ms(lambda bit=bit: run(bit)) for name, bit in stages}
+
+
+def ptxas_usage(log_text: str, kernel: str) -> str:
+    """ptxas' resource line (registers, shared memory) of the entry function
+    whose name holds ``kernel``, from the build log."""
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for later in lines[i + 1:i + 6]:
+                if "Used" in later:
+                    return later.split(":", 1)[1].strip()
+    raise AssertionError(f"no ptxas resource line for {kernel} in the build log")
+
+
+def check_k1(cb, A12, cam12, bundle, build_log: str, k1_bound: dict):
     import torch
 
-    target = 0.5 * (grid_min + grid_max)
-    target[1] = 0.8 * grid_min[1]
-    cam = torch.eye(4, dtype=torch.float32, device=x72.device).repeat(x72.shape[0], 1, 1)
-    cam[:, :3, 3] = target - x72[:, :3].mean(dim=0)
-    return cam
-
-
-def check_k1(cb, A12, cam12, bundle):
-    import torch
-
-    from psi_tpu_torch.ops.fused_skinning import fused_skinning_fwd, fused_skinning_fwd_reference
+    from psi_tpu_torch.ops import _cuda
+    from psi_tpu_torch.ops.fused_skinning import (FWD_ALL, FWD_STAGES, fused_skinning_fwd,
+                                                  fused_skinning_fwd_reference, fwd_operands)
     from psi_tpu_torch.utils.timing import cuda_ms
 
     verts = fused_skinning_fwd(cb, A12, cam12, bundle)
+    again = fused_skinning_fwd(cb, A12, cam12, bundle)
     ref = fused_skinning_fwd_reference(cb, A12, cam12, bundle)
     torch.cuda.synchronize()
+    bit_equal = torch.equal(verts, again)
     err = (verts - ref).abs().max().item()
     ms = cuda_ms(lambda: fused_skinning_fwd(cb, A12, cam12, bundle))
     plain_ms = cuda_ms(lambda: fused_skinning_fwd_reference(cb, A12, cam12, bundle))
+    args, _, _keep = fwd_operands(cb, A12, cam12, bundle)
+    alone = stage_ms("psi_skin_fwd", args, FWD_STAGES, FWD_ALL, _cuda.stream_of(cb))
     log(f"[K1] fused_skinning_fwd B={cb.shape[0]} V={bundle.n_verts} J={A12.shape[1]} C={cb.shape[1]}: "
-        f"max |kernel - twin| = {err:.3e} m (tol {K1_ABS_TOL}); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+        f"max |kernel - twin| = {err:.3e} m (tol {K1_ABS_TOL}); two runs bit-equal: {bit_equal}; "
+        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    log("[K1] launches alone: " + ", ".join(f"{n} {v:.4f} ms" for n, v in alone.items())
+        + f"; sum {sum(alone.values()):.4f} ms; whole K1 call {ms:.4f} ms; bound {k1_bound['bound_ms']:.4f} ms "
+        f"({k1_bound['bound_by']}): the main launch takes {alone['main'] / k1_bound['bound_ms']:.1f}x its bound; "
+        f"ptxas: {ptxas_usage(build_log, K1_MMA_KERNEL)}, {_cuda.library().psi_skin_fwd_smem()} bytes of dynamic smem")
+    if not bit_equal:
+        raise AssertionError("K1 is not deterministic")
     if not err <= K1_ABS_TOL:
         raise AssertionError(f"K1 disagrees with its twin: {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "stage_ms": alone, "library_ms": None, **k1_bound}
 
 
-# K2's kernels that compute a product: each must hold tensor-core instructions
+# K1's and K2's kernels that compute a product: each must hold tensor-core instructions
+K1_MMA_KERNEL = "skin_fwd_kernel"
 K2_MMA_KERNELS = ("skin_bwd_coef_kernel", "splitk_gemm_kernel")
-K2_KERNELS = ("skin_bwd_pack_kernel",) + K2_MMA_KERNELS + ("reduce_tiles_kernel",)
+SKIN_KERNELS = ("skin_pack_kernel", K1_MMA_KERNEL) + K2_MMA_KERNELS + ("reduce_tiles_kernel",)
 
 
 def hmma_counts(lib_path):
@@ -174,46 +240,28 @@ def hmma_counts(lib_path):
     return counts
 
 
-def check_k2_sass(lib_path):
-    """Phase 2's tensor-core check: HMMA count of each K2 kernel; raises
-    if a kernel that computes a product has none."""
+def check_skinning_sass(lib_path):
+    """Phase 2's tensor-core check: HMMA count of each of K1's and K2's
+    kernels; raises if a kernel that computes a product has none."""
     counts = hmma_counts(lib_path)
     found = {}
-    for name in K2_KERNELS:
+    for name in SKIN_KERNELS:
         hits = [n for fn, n in counts.items() if name in fn]
         if not hits:
             raise AssertionError(f"{name} is not in the library's SASS")
         found[name] = sum(hits)
-        log(f"[build]   K2 {name}: {found[name]} HMMA instructions")
-    if not all(found[name] > 0 for name in K2_MMA_KERNELS):
-        raise AssertionError(f"a K2 product kernel runs no tensor-core instruction: {found}")
+        log(f"[build]   {name}: {found[name]} HMMA instructions")
+    if not all(found[name] > 0 for name in (K1_MMA_KERNEL,) + K2_MMA_KERNELS):
+        raise AssertionError(f"a K1 or K2 product kernel runs no tensor-core instruction: {found}")
     return found
 
 
-def k2_stage_ms(cb, A12, cam12, bundle, g):
-    """Device ms of each of K2's launches alone, after one full run that
-    leaves each launch's inputs in the workspace. Direct library calls:
-    they are measurements, not launches of the main path."""
-    from psi_tpu_torch.ops import _cuda
-    from psi_tpu_torch.ops.fused_skinning import BWD_ALL, BWD_STAGES, bwd_operands
-    from psi_tpu_torch.utils.timing import cuda_ms
-
-    args, _, _keep = bwd_operands(cb, A12, cam12, bundle, g)
-    lib, stream = _cuda.library(), _cuda.stream_of(cb)
-
-    def run(stages):
-        err = lib.psi_skin_bwd(*args, stages, stream)
-        if err != 0:
-            raise RuntimeError(f"psi_skin_bwd stages {stages}: cudaError {err}")
-
-    run(BWD_ALL)
-    return {name: cuda_ms(lambda bit=bit: run(bit)) for name, bit in BWD_STAGES}
-
-
-def check_k2(cb, A12, cam12, bundle):
+def check_k2(cb, A12, cam12, bundle, k2_bound: dict):
     import torch
 
-    from psi_tpu_torch.ops.fused_skinning import fused_skinning_bwd, fused_skinning_bwd_reference
+    from psi_tpu_torch.ops import _cuda
+    from psi_tpu_torch.ops.fused_skinning import (BWD_ALL, BWD_STAGES, bwd_operands, fused_skinning_bwd,
+                                                  fused_skinning_bwd_reference)
     from psi_tpu_torch.utils.timing import cuda_ms
 
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -228,17 +276,20 @@ def check_k2(cb, A12, cam12, bundle):
     err = max((a - r).abs().max().item() for a, r in zip(run1, ref))
     ms = cuda_ms(lambda: fused_skinning_bwd(cb, A12, cam12, bundle, g))
     plain_ms = cuda_ms(lambda: fused_skinning_bwd_reference(cb, A12, cam12, bundle, g))
-    stage_ms = k2_stage_ms(cb, A12, cam12, bundle, g)
+    args, _, _keep = bwd_operands(cb, A12, cam12, bundle, g)
+    alone = stage_ms("psi_skin_bwd", args, BWD_STAGES, BWD_ALL, _cuda.stream_of(cb))
     log(f"[K2] fused_skinning_bwd: max |kernel - twin| / max |twin| = "
         + ", ".join(f"{n} {v:.3e}" for n, v in rel.items())
         + f" (tol {K2_REL_TOL}); two runs bit-equal: {bit_equal}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
-    log("[K2] launches alone: " + ", ".join(f"{n} {v:.4f} ms" for n, v in stage_ms.items())
-        + f"; sum {sum(stage_ms.values()):.4f} ms; whole K2 call {ms:.4f} ms; twin {plain_ms:.4f} ms")
+    log("[K2] launches alone: " + ", ".join(f"{n} {v:.4f} ms" for n, v in alone.items())
+        + f"; sum {sum(alone.values()):.4f} ms; whole K2 call {ms:.4f} ms; twin {plain_ms:.4f} ms; "
+        f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
     if not bit_equal:
         raise AssertionError("K2 is not deterministic")
     if not max(rel.values()) <= K2_REL_TOL:
         raise AssertionError(f"K2 disagrees with its twin: {rel}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "rel_err": rel, "stage_ms": stage_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "rel_err": rel, "stage_ms": alone,
+            "library_ms": None, **k2_bound}
 
 
 def check_k3(x, y_pruned, y_full):
@@ -262,12 +313,21 @@ def check_k3(x, y_pruned, y_full):
         non_tie = (differ & ((dk - dt).abs() > K3_REL_TOL * dt.clamp(min=1e-12))).sum().item()
         ms = cuda_ms(lambda: nn_argmin(x, y))
         plain_ms = cuda_ms(lambda: nn_argmin_reference(x, y))
-        log(f"[K3] chamfer_nn_argmin B={x.shape[0]} N={x.shape[1]} M={y.shape[1]}: max rel distance err "
+        # no single PyTorch call computes the argmin; cdist then argmin (two
+        # calls, a [B, N, M] matrix through device memory) is the nearest
+        cdist_ms = cuda_ms(lambda: torch.cdist(x, y).argmin(dim=-1))
+        B, N, M = x.shape[0], x.shape[1], y.shape[1]
+        # x and y read once, idx written; per (x, y) pair 3 subtractions, 3
+        # multiplications, 2 additions and the comparison, in f32
+        k3_bound = bound(4 * (3 * B * N + 3 * B * M + B * N), f32=9 * B * N * M)
+        log(f"[K3] chamfer_nn_argmin B={B} N={N} M={M}: max rel distance err "
             f"{rel:.3e} (tol {K3_REL_TOL}); index agreement {agree:.6f} ({int(differ.sum())} differ, "
-            f"{non_tie} not ties); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+            f"{non_tie} not ties); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, torch.cdist + argmin "
+            f"{cdist_ms:.4f} ms; bound {k3_bound['bound_ms']:.4f} ms ({k3_bound['bound_by']})")
         if not rel <= K3_REL_TOL or non_tie:
             raise AssertionError(f"K3 disagrees with its twin at {label}: rel {rel}, {non_tie} non-tie")
-        out[label] = {"max_abs_err": (dk - dt).abs().max().item(), "ms": ms, "plain_ms": plain_ms}
+        out[label] = {"max_abs_err": (dk - dt).abs().max().item(), "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": None, "cdist_argmin_ms": cdist_ms, **k3_bound}
     return out
 
 
@@ -289,6 +349,9 @@ def check_probes(dev):
     rows = {ROW_GATHER.name: res["support"][f"row{profile_vmem_gather.R}"],
             LANE_GATHER.name: res["support"][f"lane{profile_vmem_gather.R}"],
             CHAINED_GATHER.name: res["throughput"], RELAYOUT.name: res["relayout"]}
+    for name, r in rows.items():
+        r.update(bound(r["bytes"], f32=r["f32_ops"]))
+        log(f"[probes] {name}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel {r['ms']:.4f} ms")
     return rows, launches, res["hbm"]
 
 
@@ -352,6 +415,7 @@ def smoke(dev) -> None:
     from psi_tpu_torch.utils.init import seeded_init_
     from psi_tpu_torch.utils.precision import strict_f32
     from psi_tpu_torch.scripts import profile_sdf
+    from psi_tpu_torch.scripts.profile_fit import floor_placement
     from psi_tpu_torch.utils.timing import nvidia_smi
 
     # ---- 1. device
@@ -364,10 +428,11 @@ def smoke(dev) -> None:
     lib_path = _cuda.build_library()
     _cuda.library()
     log(f"[build] {time.time() - t0:.1f} s -> {lib_path}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
+    build_log = lib_path.with_suffix(".log").read_text()
+    for line in build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build]   {line.strip()}")
-    hmma = check_k2_sass(lib_path)
+    hmma = check_skinning_sass(lib_path)
 
     # ---- inputs at full width, from the seed
     t0 = time.time()
@@ -389,8 +454,9 @@ def smoke(dev) -> None:
     with strict_f32(), torch.no_grad():
         bundle = make_fused_bundle(assets.smplx)
         cb, A12, cam12 = body_operands(assets, x72_pre, cam_ext)
-        k1 = check_k1(cb, A12, cam12, bundle)
-        k2 = check_k2(cb, A12, cam12, bundle)
+        k1_bound, k2_bound = skinning_bounds(cb.shape[0], cb.shape[1], A12.shape[1], bundle.n_verts)
+        k1 = check_k1(cb, A12, cam12, bundle, build_log, k1_bound)
+        k2 = check_k2(cb, A12, cam12, bundle, k2_bound)
         verts = fused_skinning_fwd(cb, A12, cam12, bundle)
         contact = verts[:, assets.contact_vids].contiguous()
         y_full = assets.scene_verts[scene_idx].contiguous()
@@ -484,10 +550,12 @@ def smoke(dev) -> None:
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": counts[k.name], "max_abs_err": res["max_abs_err"],
-             "ms": res["ms"], "plain_ms": res["plain_ms"]} for k, res, counts in results]
+             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+             "bound_by": res["bound_by"], "library_ms": res["library_ms"]} for k, res, counts in results]
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb},
-                    "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"], "hmma": hmma},
+                    "k1": {"stage_ms": k1["stage_ms"]},
+                    "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"]}, "hmma": hmma,
                     "k3_full_cloud": k3["full"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores}))
     log(json.dumps({"kernels": rows}))
     log(smi)

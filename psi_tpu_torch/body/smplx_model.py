@@ -198,8 +198,8 @@ def smplx_forward(
 def make_fused_bundle(model: SMPLXModel) -> SkinningBundle:
     """Constant operands of ``smplx_forward_fused``. Build it ONCE outside
     an optimisation loop and pass it in: rebuilding it per loss evaluation
-    re-lays-out ~100 MB of model tensors (at SMPL-X's width; K2's padded
-    copies included)."""
+    re-lays-out ~65 MB of model tensors (at SMPL-X's width: the basis in
+    both layouts, zero-padded)."""
     return make_skinning_bundle(model.v_template, model.shapedirs, model.posedirs, model.lbs_weights)
 
 

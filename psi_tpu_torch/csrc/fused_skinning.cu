@@ -8,17 +8,36 @@
 //   fin_x = cam[b,4x+3] + sum_y cam[b,4x+y] * out_y
 // cb, A12, base and w are bf16; cam and all sums are f32.
 //
-// K1 (forward). What bounds it on this card: about 2 * (3C + 12J) = 4.3k
-// FLOP per (b, v) at C=497, J=55 — 11.5 GFLOP at B=256, V=10475 — against
-// 31 MB of bf16 basis that every body reads. The basis fits in the 50 MB L2,
-// so the kernel is bound by L1/L2 traffic and f32 FMA issue, not by HBM.
-// Design (simple first; no tensor cores yet): a 2-D grid over vertex tiles
-// x body tiles. Each block stages its bodies' cb and A12 rows in shared
-// memory as f32 (the bf16 rounding was done by the caller, exactly where
-// the TPU kernel rounds). Each thread computes one (b, v): a warp is 32
-// consecutive vertices of one body, so basis loads are coalesced and the
-// staged rows are smem broadcasts; the block's other warps read the same
-// basis lines from L1.
+// K1 (forward), on the tensor cores. What bounds it on this card: each input
+// read once and the vertices written once are 65 MB at B=256, V=10475, C=497,
+// J=55 (31 MB of bf16 basis, 32 MB of f32 vertices), 0.020 ms at 3.35 TB/s;
+// its 2 B V (3C + 12J) = 11.5 GFLOP of bf16 products are 0.012 ms at 989
+// TFLOP/s. So bytes set the bound, 0.020 ms. Design: K1 is K2's mainloop
+// (mma_tile, below) with a light epilogue, after K2's pack launch:
+//   1. pack: cb, the A12 planes and cam, zero-padded to Bp bodies (the launch
+//      K2 starts with, into K1's own small workspace).
+//   2. main, grid (body tiles x vertex tiles of 64 x 32), blockIdx.x the body
+//      tile so that the blocks that share a basis tile run together and find
+//      it in L2: vp_y = base_vc[y] @ cb^T (K = Cp; three basis tiles share one cb
+//      tile), then for each output row x: T_4x..T_4x+3 = w_vj @ A12[:,:,z]^T
+//      (K = Jp; four A12 planes share one weight tile) and out_x from them at
+//      once, so that only vp, one row's four T planes and the three out_x are
+//      live in registers. The epilogue applies cam in f32 in the twin's
+//      association order and stages the tile's [bodies][3 x vertices] floats
+//      in the (now free) ring, so that each body's run leaves as consecutive
+//      4-byte stores: a row of `out` starts only 4-byte aligned (3V floats),
+//      so there are no 16-byte stores. Stores are masked to b < B, v < V.
+// Nothing is summed across blocks, so two runs give equal bits. Bodies are
+// padded to a multiple of 64: at B=16 three quarters of the packed rows, and
+// of the one body tile's products, are padding.
+// The block is 64 bodies x 32 vertices on 8 warps (each 16 x 16, as in K2's
+// coefficient pass) at 128 registers a thread, two blocks an SM. On an NVIDIA
+// H100 80GB HBM3 at 700.00 W the main launch takes 0.124 ms, 6.4x the bound,
+// and the pack 0.014 ms; a 32 x 32 block on 4 warps took 0.194 ms at 176
+// registers and 0.145 ms held to 128. Its ~100 TFLOP/s are a tenth of the
+// card's bf16 peak: 16 x 16 warp tiles read about 340 bytes of shared memory
+// for every mma, and a k-slab of 32 is 12 mma a warp between two barriers.
+// Wider warp tiles on wgmma are the next step.
 //
 // K2 (backward), on the tensor cores. Every large contraction of
 // _bwd_kernel is a bf16 x bf16 product summed in f32 (the TPU kernel rounds
@@ -68,95 +87,36 @@
 
 namespace {
 
-constexpr int FWD_TV = 32;   // vertices per block (threadIdx.x, one warp)
-constexpr int FWD_TB = 8;    // bodies per block (threadIdx.y)
 constexpr int BK = 32;       // k per shared-memory slab: two m16n8k16 steps
 constexpr int SK = BK + 8;   // slab row pitch in bf16 (80 B): 16-B rows, conflict-free fragment loads
 constexpr int STAGES = 3;    // slabs in flight in the shared-memory ring
 constexpr int MMA_THREADS = 128;         // 4 warps in every K2 mma block
+constexpr int FW_TV = 32, FW_TB = 64;    // K1: vertices x bodies per block
+constexpr int FW_WARPS_N = 4;            // K1: warps along the bodies (2 x 4 warps of 16 vertices x 16 bodies)
+constexpr int FW_THREADS = 256;
+constexpr int FW_MIN_BLOCKS = 2;         // K1: blocks an SM that ptxas must leave registers for (128 a thread)
 constexpr int CF_TV = 32, CF_TB = 32;    // coefficient pass: vertices x bodies per block
 constexpr int RG_TM = 64, RG_TN = 64;    // reductions: output rows x columns per block
 constexpr int NCOEF = 15;    // bf16 planes: 3 g_vp, 12 g_A weights
 constexpr int PAD_B = 64;   // the pack pads the bodies to this multiple
-constexpr int PAD_C = 64, PAD_J = 64, PAD_V = 256;  // multiples psi_skin_bwd requires of the bundle's widths
+constexpr int PAD_C = 64, PAD_J = 64, PAD_V = 256;  // multiples K1 and K2 require of the bundle's widths
 constexpr int TARGET_BLOCKS = 264;       // two blocks on each of the 132 SMs
 constexpr int RED_THREADS = 256;
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-__device__ __forceinline__ float bf(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Stage rows [b0, b0+nb) of a [B, n] bf16 matrix as f32 in shared memory
-// (zeros past B).
-__device__ __forceinline__ void stage_rows(float* dst, const __nv_bfloat16* src, int b0, int nb,
-                                           int B, int n, int tid, int nthreads) {
-  for (int i = tid; i < nb * n; i += nthreads) {
-    const int b = b0 + i / n;
-    dst[i] = b < B ? bf(src[(size_t)b * n + i % n]) : 0.f;
-  }
-}
-
-// vp[3] and T[12] of body row (cbr, ar) at vertex v.
-__device__ __forceinline__ void recompute(const float* cbr, const float* ar,
-                                          const __nv_bfloat16* __restrict__ base,
-                                          const __nv_bfloat16* __restrict__ w_jv,
-                                          int C, int J, int V, int v, float vp[3], float T[12]) {
-  const size_t plane = (size_t)C * V;
-  float v0 = 0.f, v1 = 0.f, v2 = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float k = cbr[c];
-    const size_t o = (size_t)c * V + v;
-    v0 = fmaf(k, bf(base[o]), v0);
-    v1 = fmaf(k, bf(base[plane + o]), v1);
-    v2 = fmaf(k, bf(base[2 * plane + o]), v2);
-  }
-  vp[0] = v0; vp[1] = v1; vp[2] = v2;
-#pragma unroll
-  for (int z = 0; z < 12; ++z) T[z] = 0.f;
-  for (int j = 0; j < J; ++j) {
-    const float wj = bf(w_jv[(size_t)j * V + v]);
-    const float* a = ar + j * 12;
-#pragma unroll
-    for (int z = 0; z < 12; ++z) T[z] = fmaf(a[z], wj, T[z]);
-  }
+// One row of the blended transform applied to the posed vertex:
+// T[3] + T[0] vp[0] + T[1] vp[1] + T[2] vp[2], in this order.
+__device__ __forceinline__ float skin_row(const float vp[3], const float T[4]) {
+  return T[3] + T[0] * vp[0] + T[1] * vp[1] + T[2] * vp[2];
 }
 
 __device__ __forceinline__ void skin_out(const float vp[3], const float T[12], float out[3]) {
 #pragma unroll
-  for (int x = 0; x < 3; ++x)
-    out[x] = T[4 * x + 3] + T[4 * x] * vp[0] + T[4 * x + 1] * vp[1] + T[4 * x + 2] * vp[2];
+  for (int x = 0; x < 3; ++x) out[x] = skin_row(vp, T + 4 * x);
 }
 
-__global__ void skin_fwd_kernel(const __nv_bfloat16* __restrict__ cb,   // [B, C]
-                                const __nv_bfloat16* __restrict__ a12,  // [B, J, 12]
-                                const float* __restrict__ cam,          // [B, 12]
-                                const __nv_bfloat16* __restrict__ base, // [3, C, V]
-                                const __nv_bfloat16* __restrict__ w_jv, // [J, V]
-                                float* __restrict__ out,                // [B, V, 3]
-                                int B, int C, int J, int V) {
-  extern __shared__ float smem[];
-  float* cb_s = smem;                 // [FWD_TB][C]
-  float* a_s = smem + FWD_TB * C;     // [FWD_TB][J * 12]
-  const int b0 = blockIdx.y * FWD_TB;
-  const int tid = threadIdx.y * FWD_TV + threadIdx.x;
-  stage_rows(cb_s, cb, b0, FWD_TB, B, C, tid, FWD_TV * FWD_TB);
-  stage_rows(a_s, a12, b0, FWD_TB, B, J * 12, tid, FWD_TV * FWD_TB);
-  __syncthreads();
-
-  const int v = blockIdx.x * FWD_TV + threadIdx.x;
-  const int b = b0 + threadIdx.y;
-  if (v >= V || b >= B) return;
-  float vp[3], T[12], o[3];
-  recompute(cb_s + threadIdx.y * C, a_s + threadIdx.y * J * 12, base, w_jv, C, J, V, v, vp, T);
-  skin_out(vp, T, o);
-  const float* cm = cam + (size_t)b * 12;
-  float* dst = out + ((size_t)b * V + v) * 3;
-#pragma unroll
-  for (int x = 0; x < 3; ++x)
-    dst[x] = cm[4 * x + 3] + cm[4 * x] * o[0] + cm[4 * x + 1] * o[1] + cm[4 * x + 2] * o[2];
-}
-
-// ---- K2: the bf16 mma.sync mainloop and its uses
+// ---- the bf16 mma.sync mainloop and its uses: K2's launches, then K1
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -197,7 +157,7 @@ struct MmaOperands {
 template <int BM, int BN, int NA, int NB>
 __host__ __device__ constexpr int stage_elems() { return STAGES * (NA * BM + NB * BN) * SK; }
 
-// The mainloop. A block of MMA_THREADS computes, for every pair (pa < NA, pb < NB),
+// The mainloop. A block of THREADS computes, for every pair (pa < NA, pb < NB),
 //   acc[pa][pb] += sum over K planes q of A_q[pa][0:BM, k0:k1] @ B_q[pb][0:BN, k0:k1]^T
 // through a STAGES-deep ring of BK-slabs in shared memory (`stage`,
 // stage_elems<BM, BN, NA, NB>() bf16), one __syncthreads per slab. Warp w owns
@@ -205,10 +165,10 @@ __host__ __device__ constexpr int stage_elems() { return STAGES * (NA * BM + NB 
 // acc[..][mt][nt] is the m16n8 tile in mma.sync's layout: elements 0,1 at
 // (row g, cols 2t, 2t+1), 2,3 at row g+8 (g = lane/4, t = lane%4). Returns
 // with every thread past its last read of `stage`.
-template <int BM, int BN, int WARPS_N, int MT, int NT, int NA, int NB>
+template <int BM, int BN, int WARPS_N, int MT, int NT, int NA, int NB, int THREADS = MMA_THREADS>
 __device__ __forceinline__ void mma_tile(const MmaOperands& o, __nv_bfloat16* stage,
                                          float (&acc)[NA][NB][MT][NT][4]) {
-  static_assert(BM == (MMA_THREADS / 32 / WARPS_N) * 16 * MT && BN == WARPS_N * 8 * NT, "warp tiling");
+  static_assert(BM == (THREADS / 32 / WARPS_N) * 16 * MT && BN == WARPS_N * 8 * NT, "warp tiling");
   constexpr int ROWS = NA * BM + NB * BN;
   constexpr int CHUNKS = ROWS * (BK / 8);  // 16-byte copies per slab
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -222,7 +182,7 @@ __device__ __forceinline__ void mma_tile(const MmaOperands& o, __nv_bfloat16* st
       __nv_bfloat16* dst = stage + (slab % STAGES) * ROWS * SK;
       const __nv_bfloat16* A = o.A + q * o.a_kplane + k;
       const __nv_bfloat16* B = o.B + q * o.b_kplane + k;
-      for (int i = tid; i < CHUNKS; i += MMA_THREADS) {
+      for (int i = tid; i < CHUNKS; i += THREADS) {
         const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
         const __nv_bfloat16* src;
         if (r < NA * BM) src = A + (r / BM) * o.a_plane + (size_t)(r % BM) * o.lda + c;
@@ -276,12 +236,13 @@ __device__ __forceinline__ void mma_tile(const MmaOperands& o, __nv_bfloat16* st
   __syncthreads();
 }
 
-// Launch 1, pack: the per-body operands, zero-padded to Bp bodies, into the
-// workspace: cb [Bp, Cp], the A12 planes [12, Bp, Jp], cam [Bp, 12].
-__global__ void skin_bwd_pack_kernel(const __nv_bfloat16* __restrict__ cb, const __nv_bfloat16* __restrict__ a12,
-                                     const float* __restrict__ cam, __nv_bfloat16* __restrict__ cbp,
-                                     __nv_bfloat16* __restrict__ a12p, float* __restrict__ camp, int B, int C,
-                                     int J, int Bp, int Cp, int Jp) {
+// The pack, first launch of K1 and of K2: the per-body operands, zero-padded
+// to Bp bodies, into the workspace: cb [Bp, Cp], the A12 planes [12, Bp, Jp],
+// cam [Bp, 12].
+__global__ void skin_pack_kernel(const __nv_bfloat16* __restrict__ cb, const __nv_bfloat16* __restrict__ a12,
+                                 const float* __restrict__ cam, __nv_bfloat16* __restrict__ cbp,
+                                 __nv_bfloat16* __restrict__ a12p, float* __restrict__ camp, int B, int C,
+                                 int J, int Bp, int Cp, int Jp) {
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < Bp * Cp; i += stride) {
@@ -296,7 +257,100 @@ __global__ void skin_bwd_pack_kernel(const __nv_bfloat16* __restrict__ cb, const
     camp[i] = i < B * 12 ? cam[i] : 0.f;
 }
 
-// Launch 2, the coefficient pass. Block (body tile, vertex tile) of 32 x 32,
+// K1's main launch. Block (body tile, vertex tile) of TB x TV with THREADS / 32
+// warps, WARPS_N of them along the bodies. vp first; then, for each output row
+// x, the four T planes of that row and out_x from them, so that a thread holds
+// vp[3], T[4] and out[3] for its points and never all 12 T planes.
+template <int TV, int TB>
+__host__ __device__ constexpr int fwd_stage_elems() {
+  return stage_elems<TV, TB, 3, 1>() > stage_elems<TV, TB, 1, 4>() ? stage_elems<TV, TB, 3, 1>()
+                                                                    : stage_elems<TV, TB, 1, 4>();
+}
+// Row pitch, in floats, of the tile's [TB][3 TV] vertices staged for the
+// stores: 12 mod 16, so that a warp's 32 writes (bodies 2t apart, vertices g
+// apart, 3 floats a vertex) fall in 32 banks.
+template <int TV>
+__host__ __device__ constexpr int fwd_out_pitch() { return 3 * TV + 12 + (16 - 3 * TV % 16) % 16; }
+
+template <int TV, int TB, int WARPS_N, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+skin_fwd_kernel(const __nv_bfloat16* __restrict__ cbp,       // [Bp, Cp]
+                const __nv_bfloat16* __restrict__ a12p,      // [12, Bp, Jp]
+                const float* __restrict__ camp,              // [Bp, 12]
+                const __nv_bfloat16* __restrict__ base_vcp,  // [3, Vp, Cp]
+                const __nv_bfloat16* __restrict__ w_vjp,     // [Vp, Jp]
+                float* __restrict__ out,                     // [B, V, 3]
+                int B, int V, int Bp, int Cp, int Jp, int Vp) {
+  constexpr int WARPS_M = THREADS / 32 / WARPS_N, MT = TV / (WARPS_M * 16), NT = TB / (WARPS_N * 8);
+  constexpr int OP = fwd_out_pitch<TV>();
+  static_assert(PAD_B % TB == 0 && PAD_V % TV == 0, "tiles divide the padded sizes");
+  static_assert(TB * OP * sizeof(float) <= fwd_stage_elems<TV, TB>() * sizeof(__nv_bfloat16), "staged tile fits the ring");
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(fwd_smem);
+  const int b0 = blockIdx.x * TB, v0 = blockIdx.y * TV;
+
+  float vp[3][1][MT][NT][4] = {};
+  mma_tile<TV, TB, WARPS_N, MT, NT, 3, 1, THREADS>(
+      MmaOperands{base_vcp + (size_t)v0 * Cp, Cp, (size_t)Vp * Cp, 0, cbp + (size_t)b0 * Cp, Cp, 0, 0, 1, 0, Cp},
+      stage, vp);
+  float o[3][MT][NT][4];
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    float T[1][4][MT][NT][4] = {};
+    mma_tile<TV, TB, WARPS_N, MT, NT, 1, 4, THREADS>(
+        MmaOperands{w_vjp + (size_t)v0 * Jp, Jp, 0, 0, a12p + ((size_t)4 * x * Bp + b0) * Jp, Jp, (size_t)Bp * Jp,
+                    0, 1, 0, Jp},
+        stage, T);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p[3] = {vp[0][0][mt][nt][i], vp[1][0][mt][nt][i], vp[2][0][mt][nt][i]};
+          const float Tx[4] = {T[0][0][mt][nt][i], T[0][1][mt][nt][i], T[0][2][mt][nt][i], T[0][3][mt][nt][i]};
+          o[x][mt][nt][i] = skin_row(p, Tx);
+        }
+  }
+
+  // epilogue: cam in f32 (the twin's order), the tile to shared memory (the
+  // ring is free: mma_tile returned past its last read), then each body's run
+  // of 3 * (vertices of the tile) floats out as consecutive 4-byte stores
+  float* os = reinterpret_cast<float*>(fwd_smem);  // [TB][OP]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gi = lane >> 2, t = lane & 3, wm = warp / WARPS_N, wn = warp % WARPS_N;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // the two bodies of an accumulator row
+      const int bl = (wn * NT + nt) * 8 + 2 * t + q;
+      float cm[12];
+      const float4* cp = reinterpret_cast<const float4*>(camp + (size_t)(b0 + bl) * 12);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float4 c = cp[k];
+        cm[4 * k] = c.x; cm[4 * k + 1] = c.y; cm[4 * k + 2] = c.z; cm[4 * k + 3] = c.w;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // vertex rows g and g + 8
+          const int i = 2 * h + q, vl = (wm * MT + mt) * 16 + gi + h * 8;
+          const float ov[3] = {o[0][mt][nt][i], o[1][mt][nt][i], o[2][mt][nt][i]};
+          float* dst = os + bl * OP + vl * 3;
+#pragma unroll
+          for (int x = 0; x < 3; ++x) dst[x] = skin_row(ov, cm + 4 * x);
+        }
+    }
+  __syncthreads();
+  const int run = 3 * min(TV, V - v0);  // floats of a body's row that this tile owns
+  for (int i = threadIdx.x; i < TB * 3 * TV; i += THREADS) {
+    const int bl = i / (3 * TV), c = i % (3 * TV);
+    if (b0 + bl < B && c < run) out[((size_t)(b0 + bl) * V + v0) * 3 + c] = os[bl * OP + c];
+  }
+}
+
+// K2's launch 2, the coefficient pass. Block (body tile, vertex tile) of 32 x 32,
 // 2 x 2 warps of 16 vertices x 16 bodies. Each thread holds, for its 8 (v, b)
 // points, vp[3] and T[12] in the same accumulator slots.
 constexpr int CF_STAGE = stage_elems<CF_TV, CF_TB, 1, 4>();  // the larger of the two products' rings
@@ -402,7 +456,7 @@ skin_bwd_coef_kernel(const __nv_bfloat16* __restrict__ cbp,       // [Bp, Cp]
   }
 }
 
-// Launches 3 and 4: partial[s] = sum over K planes of A @ B^T over vertex chunk s
+// K2's launches 3 and 4: partial[s] = sum over K planes of A @ B^T over vertex chunk s
 // (slabs [s * per, min((s + 1) * per, n_slabs))), 64 x 64 outputs per block,
 // 2 x 2 warps of 32 x 32.
 __global__ void __launch_bounds__(MMA_THREADS)
@@ -430,7 +484,7 @@ splitk_gemm_kernel(const __nv_bfloat16* __restrict__ A, int lda, size_t a_kplane
     }
 }
 
-// Launch 5: each output the sum of its partials in ascending order, written in
+// K2's launch 5: each output the sum of its partials in ascending order, written in
 // the wrapper's layouts: blockIdx.y 0 -> g_cb [B, C] from [S_cb, Bp, Cp];
 // 1 -> g_A12 [B, J, 12] from [S_a, 12, Bp, Jp]; 2 -> g_cam12 [B, 12] from
 // [Vp / CF_TV, Bp, 12].
@@ -495,7 +549,7 @@ BwdPlan bwd_plan(int Bp, int Cp, int Jp, int Vp) {
 
 int ceil_to(int x, int m) { return (x + m - 1) / m * m; }
 
-bool bwd_shapes_ok(int B, int C, int J, int V, int Cp, int Jp, int Vp) {
+bool shapes_ok(int B, int C, int J, int V, int Cp, int Jp, int Vp) {
   return B > 0 && C > 0 && J > 0 && V > 0 && C <= Cp && J <= Jp && V <= Vp && Cp % PAD_C == 0 &&
          Jp % PAD_J == 0 && Vp % PAD_V == 0;
 }
@@ -507,26 +561,75 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaSuccess;
 }
 
+// K1's workspace: the packed per-body operands.
+struct FwdPlan {
+  size_t off_a12p, off_camp, bytes;  // byte offsets (cb at 0)
+};
+
+FwdPlan fwd_plan(int Bp, int Cp, int Jp) {
+  FwdPlan p;
+  p.off_a12p = align256((size_t)Bp * Cp * sizeof(__nv_bfloat16));
+  p.off_camp = p.off_a12p + align256((size_t)12 * Bp * Jp * sizeof(__nv_bfloat16));
+  p.bytes = p.off_camp + align256((size_t)Bp * 12 * sizeof(float));
+  return p;
+}
+
+void launch_pack(const void* cb, const void* a12, const void* cam, __nv_bfloat16* cbp, __nv_bfloat16* a12p,
+                 float* camp, int B, int C, int J, int Bp, int Cp, int Jp, cudaStream_t st) {
+  const int n = std::max(Bp * Cp, 12 * Bp * Jp);
+  skin_pack_kernel<<<(n + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, st>>>(
+      (const __nv_bfloat16*)cb, (const __nv_bfloat16*)a12, (const float*)cam, cbp, a12p, camp, B, C, J, Bp, Cp, Jp);
+}
+
 }  // namespace
 
-extern "C" int psi_skin_fwd(const void* cb, const void* a12, const void* cam, const void* base,
-                            const void* w_jv, void* out, int B, int C, int J, int V, void* stream) {
-  if (B <= 0 || C <= 0 || J <= 0 || V <= 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)FWD_TB * (C + 12 * J) * sizeof(float);
-  cudaError_t err = set_smem((const void*)skin_fwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 block(FWD_TV, FWD_TB);
-  const dim3 grid((V + FWD_TV - 1) / FWD_TV, (B + FWD_TB - 1) / FWD_TB);
-  skin_fwd_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)cb, (const __nv_bfloat16*)a12, (const float*)cam,
-      (const __nv_bfloat16*)base, (const __nv_bfloat16*)w_jv, (float*)out, B, C, J, V);
-  return cudaGetLastError();
+// Workspace bytes psi_skin_fwd needs for B bodies and the bundle's padded
+// widths (0 if they are not multiples of PAD_C, PAD_J, PAD_V).
+extern "C" size_t psi_skin_fwd_workspace(int B, int Cp, int Jp, int Vp) {
+  if (!shapes_ok(B, 1, 1, 1, Cp, Jp, Vp)) return 0;
+  return fwd_plan(ceil_to(B, PAD_B), Cp, Jp).bytes;
+}
+
+// Dynamic shared memory of K1's main launch, in bytes (ptxas does not report it).
+extern "C" int psi_skin_fwd_smem() { return fwd_stage_elems<FW_TV, FW_TB>() * sizeof(__nv_bfloat16); }
+
+// K1: verts [B, V, 3] f32 from cb [B, C] and A12 [B, J, 12] (bf16), cam
+// [B, 12] (f32) and the bundle's operands zero-padded to Cp, Jp, Vp.
+// `stages` selects the launches (1 pack, 2 main; 3 runs both): the main
+// launch reads what the pack left in the workspace, so a subset is only for
+// timing one launch after a full run.
+extern "C" int psi_skin_fwd(const void* cb, const void* a12, const void* cam, const void* base_vcp,
+                            const void* w_vjp, void* work, void* out, int B, int C, int J, int V, int Cp,
+                            int Jp, int Vp, int stages, void* stream) {
+  if (!shapes_ok(B, C, J, V, Cp, Jp, Vp)) return cudaErrorInvalidValue;
+  const int Bp = ceil_to(B, PAD_B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const FwdPlan p = fwd_plan(Bp, Cp, Jp);
+  char* ws = (char*)work;
+  __nv_bfloat16* cbp = (__nv_bfloat16*)ws;
+  __nv_bfloat16* a12p = (__nv_bfloat16*)(ws + p.off_a12p);
+  float* camp = (float*)(ws + p.off_camp);
+  cudaError_t err;
+  if (stages & 1) {
+    launch_pack(cb, a12, cam, cbp, a12p, camp, B, C, J, Bp, Cp, Jp, st);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (stages & 2) {
+    const auto kernel = skin_fwd_kernel<FW_TV, FW_TB, FW_WARPS_N, FW_THREADS, FW_MIN_BLOCKS>;
+    const size_t smem = psi_skin_fwd_smem();
+    if ((err = set_smem((const void*)kernel, smem)) != cudaSuccess) return err;
+    kernel<<<dim3((B + FW_TB - 1) / FW_TB, (V + FW_TV - 1) / FW_TV), FW_THREADS, smem, st>>>(
+        cbp, a12p, camp, (const __nv_bfloat16*)base_vcp, (const __nv_bfloat16*)w_vjp, (float*)out, B, V, Bp, Cp,
+        Jp, Vp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // Workspace bytes psi_skin_bwd needs for B bodies and the bundle's padded
 // widths Cp, Jp, Vp (0 if they are not multiples of PAD_C, PAD_J, PAD_V).
 extern "C" size_t psi_skin_bwd_workspace(int B, int Cp, int Jp, int Vp) {
-  if (!bwd_shapes_ok(B, 1, 1, 1, Cp, Jp, Vp)) return 0;
+  if (!shapes_ok(B, 1, 1, 1, Cp, Jp, Vp)) return 0;
   return bwd_plan(ceil_to(B, PAD_B), Cp, Jp, Vp).bytes;
 }
 
@@ -540,7 +643,7 @@ extern "C" int psi_skin_bwd(const void* cb, const void* a12, const void* cam, co
                             const void* base_vcp, const void* w_jvp, const void* w_vjp, const void* g,
                             void* work, void* g_cb, void* g_a, void* g_cam, int B, int C, int J, int V,
                             int Cp, int Jp, int Vp, int stages, void* stream) {
-  if (!bwd_shapes_ok(B, C, J, V, Cp, Jp, Vp)) return cudaErrorInvalidValue;
+  if (!shapes_ok(B, C, J, V, Cp, Jp, Vp)) return cudaErrorInvalidValue;
   const int Bp = ceil_to(B, PAD_B);
   const cudaStream_t st = (cudaStream_t)stream;
   const BwdPlan p = bwd_plan(Bp, Cp, Jp, Vp);
@@ -555,10 +658,7 @@ extern "C" int psi_skin_bwd(const void* cb, const void* a12, const void* cam, co
   const size_t plane = (size_t)Bp * Vp;
   cudaError_t err;
   if (stages & 1) {
-    const int n = std::max(Bp * Cp, 12 * Bp * Jp);
-    skin_bwd_pack_kernel<<<(n + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, st>>>(
-        (const __nv_bfloat16*)cb, (const __nv_bfloat16*)a12, (const float*)cam, cbp, a12p, camp, B, C, J, Bp,
-        Cp, Jp);
+    launch_pack(cb, a12, cam, cbp, a12p, camp, B, C, J, Bp, Cp, Jp, st);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (stages & 2) {

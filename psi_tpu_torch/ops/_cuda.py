@@ -39,7 +39,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point: (argtypes); each returns int (cudaError_t)
 # unless RESTYPES says otherwise
 SIGNATURES: Dict[str, List] = {
-    "psi_skin_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "psi_skin_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    "psi_skin_fwd_workspace": [_I] * 4,
+    "psi_skin_fwd_smem": [],
     "psi_skin_bwd": [_P] * 12 + [_I] * 8 + [_P],
     "psi_skin_bwd_workspace": [_I] * 4,
     "psi_nn_argmin": [_P] * 3 + [_I] * 3 + [_P],
@@ -48,7 +50,7 @@ SIGNATURES: Dict[str, List] = {
     "psi_probe_chained_gather": [_P] * 3 + [_I] * 4 + [_P],
     "psi_probe_relayout": [_P] * 2 + [_I] * 4 + [_P],
 }
-RESTYPES = {"psi_skin_bwd_workspace": ctypes.c_size_t}
+RESTYPES = {"psi_skin_fwd_workspace": ctypes.c_size_t, "psi_skin_bwd_workspace": ctypes.c_size_t}
 
 _library: Optional[ctypes.CDLL] = None
 

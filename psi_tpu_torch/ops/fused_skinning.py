@@ -19,7 +19,8 @@ before the weight product).
 
 Two routes, chosen by the device of the tensors:
 * CUDA: kernels K1 (forward) and K2 (backward) in
-  ``csrc/fused_skinning.cu``; a launch that fails raises.
+  ``csrc/fused_skinning.cu``, both bf16 tensor-core products summed in
+  f32; a launch that fails raises.
 * CPU: the plain twins ``fused_skinning_fwd_reference`` and
   ``fused_skinning_bwd_reference`` below (bf16-rounded operands, f32
   matmuls). They are the tests' oracle and the kernels' comparison on
@@ -44,10 +45,13 @@ SKIN_BWD = _cuda.Kernel(
 )
 
 
-# The bundle pads C, J and V for K2 to these multiples, which
-# csrc/fused_skinning.cu (PAD_*) requires and checks; K2 pads the bodies itself.
+# The bundle pads C, J and V to these multiples, which csrc/fused_skinning.cu
+# (PAD_*) requires and checks; K1 and K2 pad the bodies themselves.
 PAD_C, PAD_J, PAD_V = 64, 64, 256
-# K2's launches, the bits of psi_skin_bwd's `stages`, in launch order
+# K1's and K2's launches, the bits of psi_skin_fwd's and psi_skin_bwd's
+# `stages`, in launch order
+FWD_STAGES = (("pack", 1), ("main", 2))
+FWD_ALL = 3
 BWD_STAGES = (("pack", 1), ("coef", 2), ("g_cb", 4), ("g_A", 8), ("reduce", 16))
 BWD_ALL = 31
 
@@ -59,19 +63,20 @@ def _ceil_to(x: int, m: int) -> int:
 class SkinningBundle(NamedTuple):
     """Constant operands of the fused kernels, built once per fit call.
 
-    K1 reads the unpadded [*, V] layouts and masks its own ragged edges.
-    K2 reads zero-padded copies of both layouts (C to Cp, V to Vp, J to Jp;
-    see PAD_*), so that every row starts 16-byte aligned for its cp.async
-    copies and no tile is ragged. The twins read the valid region."""
+    The basis (rows [v_template | shapedirs | posedirs], C of them) and the
+    skinning weights, bf16, each in both layouts and zero-padded (C to Cp,
+    V to Vp, J to Jp; see PAD_*), so that every row starts 16-byte aligned
+    for the kernels' cp.async copies and no tile is ragged. K1 reads the
+    K-contiguous copies (base_vcp, w_vjp), K2 all four. The twins read the
+    valid region."""
 
-    base_cv: torch.Tensor  # [3, C, V] bf16: rows [v_template | shapedirs | posedirs]
-    w_jv: torch.Tensor  # [J, V] bf16 skinning weights
-    base_cvp: torch.Tensor  # [3, Cp, Vp] bf16, zero-padded
+    base_cvp: torch.Tensor  # [3, Cp, Vp] bf16
     base_vcp: torch.Tensor  # [3, Vp, Cp] bf16
-    w_jvp: torch.Tensor  # [Jp, Vp] bf16
+    w_jvp: torch.Tensor  # [Jp, Vp] bf16 skinning weights
     w_vjp: torch.Tensor  # [Vp, Jp] bf16
     n_verts: int
     n_feat: int
+    n_joints: int
 
 
 def make_skinning_bundle(
@@ -94,14 +99,13 @@ def make_skinning_bundle(
     w_jvp = w_jv.new_zeros((Jp, Vp))
     w_jvp[:J, :V] = w_jv
     return SkinningBundle(
-        base_cv=base.contiguous(),
-        w_jv=w_jv.contiguous(),
         base_cvp=base_cvp,
         base_vcp=base_cvp.transpose(1, 2).contiguous(),
         w_jvp=w_jvp,
         w_vjp=w_jvp.T.contiguous(),
         n_verts=V,
         n_feat=C,
+        n_joints=J,
     )
 
 
@@ -116,8 +120,9 @@ def _round_operands(cb, A12, cam12):
 
 def _recompute(cbh, Ah, bundle: SkinningBundle):
     """vp [B, 3, V] and T [B, 12, V] from rounded operands (f32 matmuls)."""
-    vp = torch.einsum("bc,ycv->byv", cbh, bundle.base_cv.to(torch.float32))
-    T = torch.einsum("bjz,jv->bzv", Ah, bundle.w_jv.to(torch.float32))
+    V, C, J = bundle.n_verts, bundle.n_feat, bundle.n_joints
+    vp = torch.einsum("bc,ycv->byv", cbh, bundle.base_cvp[:, :C, :V].to(torch.float32))
+    T = torch.einsum("bjz,jv->bzv", Ah, bundle.w_jvp[:J, :V].to(torch.float32))
     out = [
         T[:, 4 * x + 3] + T[:, 4 * x] * vp[:, 0] + T[:, 4 * x + 1] * vp[:, 1] + T[:, 4 * x + 2] * vp[:, 2]
         for x in range(3)
@@ -158,7 +163,7 @@ def fused_skinning_bwd_reference(
         cam[:, y, None] * gx[0] + cam[:, 4 + y, None] * gx[1] + cam[:, 8 + y, None] * gx[2]
         for y in range(3)
     ]
-    V, C, J = bundle.n_verts, bundle.n_feat, A12.shape[1]
+    V, C, J = bundle.n_verts, bundle.n_feat, bundle.n_joints
     base_vc = bundle.base_vcp[:, :V, :C].to(torch.float32)
     g_cb = 0
     for y in range(3):
@@ -175,35 +180,53 @@ def fused_skinning_bwd_reference(
 
 
 def _check_operands(cb, A12, cam12, bundle: SkinningBundle):
+    """The per-body operands as the kernels read them (bf16 cb and A12, f32
+    cam12, contiguous) and the sizes (B, C, J, V, Cp, Jp, Vp); raises on a
+    shape, type or device that the kernels do not take. The kernels check
+    that the padded widths are multiples of their tiles."""
     B, C = cb.shape
-    J = A12.shape[1]
-    V = bundle.n_verts
+    J, V = bundle.n_joints, bundle.n_verts
     dev = cb.device
     if C != bundle.n_feat:
         raise ValueError(f"cb has {C} coefficients, the bundle basis {bundle.n_feat}")
-    _cuda.check(bundle.base_cv, "base_cv", torch.bfloat16, (3, C, V), dev)
-    _cuda.check(bundle.w_jv, "w_jv", torch.bfloat16, (J, V), dev)
+    Vp, Cp = bundle.base_vcp.shape[1:]
+    Jp = bundle.w_vjp.shape[1]
+    _cuda.check(bundle.base_vcp, "base_vcp", torch.bfloat16, (3, Vp, Cp), dev)
+    _cuda.check(bundle.w_vjp, "w_vjp", torch.bfloat16, (Vp, Jp), dev)
     cb16 = cb.detach().to(torch.bfloat16).contiguous()
     a16 = A12.detach().to(torch.bfloat16).contiguous()
     cam = cam12.detach().to(torch.float32).contiguous()
     _cuda.check(a16, "A12", torch.bfloat16, (B, J, 12), dev)
     _cuda.check(cam, "cam12", torch.float32, (B, 12), dev)
-    return cb16, a16, cam, (B, C, J, V)
+    return cb16, a16, cam, (B, C, J, V, Cp, Jp, Vp)
+
+
+def fwd_operands(cb, A12, cam12, bundle: SkinningBundle, out: Optional[torch.Tensor] = None):
+    """K1's launch: (the arguments of psi_skin_fwd before `stages` and the
+    stream, the output verts [B, V, 3] that the launch fills, the tensors
+    behind the pointers, to be kept alive until the launch). ``out``, if
+    given, is filled instead of a new tensor."""
+    cb16, a16, cam, dims = _check_operands(cb, A12, cam12, bundle)
+    B, _, _, V, Cp, Jp, Vp = dims
+    dev = cb.device
+    work = torch.empty(_cuda.library().psi_skin_fwd_workspace(B, Cp, Jp, Vp), dtype=torch.uint8, device=dev)
+    if out is None:
+        out = torch.empty((B, V, 3), dtype=torch.float32, device=dev)
+    _cuda.check(out, "out", torch.float32, (B, V, 3), dev)
+    tensors = (cb16, a16, cam, bundle.base_vcp, bundle.w_vjp, work, out)
+    return (*(t.data_ptr() for t in tensors), *dims), out, tensors
 
 
 def fused_skinning_fwd(cb, A12, cam12, bundle: SkinningBundle) -> torch.Tensor:
-    """verts [B, V, 3]: K1 on a CUDA tensor, the twin on a CPU tensor."""
+    """verts [B, V, 3]: K1 on a CUDA tensor, the twin on a CPU tensor.
+
+    K1 sums nothing across blocks: two runs give equal bits."""
     if cb.device.type == "cpu":
         return fused_skinning_fwd_reference(cb, A12, cam12, bundle)
     if cb.device.type != "cuda":
         raise ValueError(f"fused skinning runs on cpu or cuda tensors, got {cb.device}")
-    cb16, a16, cam, (B, C, J, V) = _check_operands(cb, A12, cam12, bundle)
-    out = torch.empty((B, V, 3), dtype=torch.float32, device=cb.device)
-    SKIN_FWD.launch(
-        cb.device, cb16.data_ptr(), a16.data_ptr(), cam.data_ptr(),
-        bundle.base_cv.data_ptr(), bundle.w_jv.data_ptr(), out.data_ptr(),
-        B, C, J, V, _cuda.stream_of(cb),
-    )
+    args, out, _ = fwd_operands(cb, A12, cam12, bundle)
+    SKIN_FWD.launch(cb.device, *args, FWD_ALL, _cuda.stream_of(cb))
     return out
 
 
@@ -211,19 +234,17 @@ def bwd_operands(cb, A12, cam12, bundle: SkinningBundle, g: torch.Tensor):
     """K2's launch: (the arguments of psi_skin_bwd before `stages` and the
     stream, the outputs (g_cb, g_A12, g_cam12) that the launch fills, the
     tensors behind the pointers, to be kept alive until the launch)."""
-    cb16, a16, cam, (B, C, J, V) = _check_operands(cb, A12, cam12, bundle)
+    cb16, a16, cam, dims = _check_operands(cb, A12, cam12, bundle)
+    B, C, J, V, Cp, Jp, Vp = dims
     dev = cb.device
-    (Cp, Vp), Jp = bundle.base_cvp.shape[1:], bundle.w_jvp.shape[0]  # K2 checks the multiples
     _cuda.check(bundle.base_cvp, "base_cvp", torch.bfloat16, (3, Cp, Vp), dev)
-    _cuda.check(bundle.base_vcp, "base_vcp", torch.bfloat16, (3, Vp, Cp), dev)
     _cuda.check(bundle.w_jvp, "w_jvp", torch.bfloat16, (Jp, Vp), dev)
-    _cuda.check(bundle.w_vjp, "w_vjp", torch.bfloat16, (Vp, Jp), dev)
     g = g.detach().to(torch.float32).contiguous()
     _cuda.check(g, "g", torch.float32, (B, V, 3), dev)
     work = torch.empty(_cuda.library().psi_skin_bwd_workspace(B, Cp, Jp, Vp), dtype=torch.uint8, device=dev)
     outs = tuple(torch.empty(s, dtype=torch.float32, device=dev) for s in ((B, C), (B, J, 12), (B, 12)))
     tensors = (cb16, a16, cam, bundle.base_cvp, bundle.base_vcp, bundle.w_jvp, bundle.w_vjp, g, work, *outs)
-    return (*(t.data_ptr() for t in tensors), B, C, J, V, Cp, Jp, Vp), outs, tensors
+    return (*(t.data_ptr() for t in tensors), *dims), outs, tensors
 
 
 def fused_skinning_bwd(cb, A12, cam12, bundle: SkinningBundle, g: torch.Tensor):

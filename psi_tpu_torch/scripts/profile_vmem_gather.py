@@ -18,7 +18,11 @@ alone, at the JAX script's shapes:
               indexing): 256 x 10475 indices into 4 x 128^3 8-float rows
 
 Each kernel phase holds the kernel to its plain twin (exactly equal) and
-times both with CUDA events (median of 10 after a warm-up). The last line
+times both with CUDA events (median of 10 after a warm-up); P1 and P2
+also beside the one PyTorch call that computes them (``torch.gather`` on
+int64 indices; P3 and P4 have no such call). Each result carries the
+bytes the function must move (inputs read once, output written once) and
+its f32 operations, from which a caller works out its bound. The last line
 sets the global gather's ns per index beside the shared-memory gathers'
 elements per second. Needs an NVIDIA card; inputs come from a seed.
 """
@@ -42,19 +46,28 @@ def _generator(dev: torch.device) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(0)
 
 
-def _held_to_twin(tag: str, what: str, kernel_fn, twin_fn, elems: int) -> Dict:
-    """Run kernel and twin once, require equal outputs, time both; one line."""
+def _nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _held_to_twin(tag: str, what: str, kernel_fn, twin_fn, elems: int, inputs, f32_ops: int = 0,
+                  library_fn=None) -> Dict:
+    """Run kernel and twin once, require equal outputs, time both (and the
+    one PyTorch call that computes the same, if there is one); one line."""
     out, ref = kernel_fn(), twin_fn()
     torch.cuda.synchronize()
     equal = torch.equal(out, ref)
     err = (out - ref).abs().max().item()
     ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(twin_fn)
+    library_ms = cuda_ms(library_fn) if library_fn is not None else None
     rate = elems / (ms * 1e-3)
     print(f"[{tag}] {what}: kernel == twin: {equal} (max abs err {err:.3e}, tol 0); kernel {ms:.4f} ms, "
-          f"twin {plain_ms:.4f} ms; {rate / 1e9:.2f} G elems/s", flush=True)
+          f"twin {plain_ms:.4f} ms" + (f", library call {library_ms:.4f} ms" if library_fn is not None else "")
+          + f"; {rate / 1e9:.2f} G elems/s", flush=True)
     if not equal:
         raise AssertionError(f"{tag} {what}: kernel disagrees with its twin (max abs err {err})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "elems_per_s": rate}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "elems_per_s": rate,
+            "bytes": _nbytes(*inputs, out), "f32_ops": f32_ops}
 
 
 def support(dev: torch.device) -> Dict[str, Dict]:
@@ -65,12 +78,15 @@ def support(dev: torch.device) -> Dict[str, Dict]:
         t = torch.randn((rows, L), generator=g, device=dev)
         ri = torch.randint(0, rows, (rows, L), generator=g, device=dev, dtype=torch.int32)
         li = torch.randint(0, L, (rows, L), generator=g, device=dev, dtype=torch.int32)
+        ri64, li64 = ri.long(), li.long()
         out[f"row{rows}"] = _held_to_twin(
             "P1", f"row gather (axis=0) [{rows},{L}]",
-            lambda: gp.row_gather(t, ri), lambda: gp.row_gather_reference(t, ri), rows * L)
+            lambda: gp.row_gather(t, ri), lambda: gp.row_gather_reference(t, ri), rows * L, (t, ri),
+            library_fn=lambda: torch.gather(t, 0, ri64))
         out[f"lane{rows}"] = _held_to_twin(
             "P2", f"lane gather (axis=1) [{rows},{L}]",
-            lambda: gp.lane_gather(t, li), lambda: gp.lane_gather_reference(t, li), rows * L)
+            lambda: gp.lane_gather(t, li), lambda: gp.lane_gather_reference(t, li), rows * L, (t, li),
+            library_fn=lambda: torch.gather(t, 1, li64))
     return out
 
 
@@ -82,7 +98,7 @@ def throughput(dev: torch.device, n_gathers: int = 8, grid_n: int = 256, rows: i
     res = _held_to_twin(
         "P3", f"{n_gathers} chained lane gathers x {grid_n} bodies x [{rows},{L}]",
         lambda: gp.chained_gather(t, li, n_gathers), lambda: gp.chained_gather_reference(t, li, n_gathers),
-        n_gathers * grid_n * rows * L)
+        n_gathers * grid_n * rows * L, (t, li), f32_ops=n_gathers * grid_n * rows * L)  # one add per gathered element
     res["us_per_gather"] = res["ms"] * 1e3 / (n_gathers * grid_n)
     print(f"[P3] {res['us_per_gather']:.4f} us per [{rows},{L}] gather", flush=True)
     return res
@@ -94,7 +110,8 @@ def relayout(dev: torch.device, grid_n: int = 256, n_arrays: int = 7) -> Dict:
     c = torch.randn((grid_n, R // L, L), generator=_generator(dev), device=dev)
     res = _held_to_twin(
         "P4", f"{n_arrays} x (18,128)->(2304,1) per body x {grid_n}",
-        lambda: gp.relayout(c, n_arrays, L), lambda: gp.relayout_reference(c, n_arrays, L), grid_n * R * L)
+        lambda: gp.relayout(c, n_arrays, L), lambda: gp.relayout_reference(c, n_arrays, L), grid_n * R * L, (c,),
+        f32_ops=2 * n_arrays * grid_n * R)  # c + k, then the running sum, per row
     written = 4 * grid_n * R * L
     res["write_bytes_per_s"] = written / (res["ms"] * 1e-3)
     res["us_per_relayout"] = res["ms"] * 1e3 / (n_arrays * grid_n)

@@ -27,10 +27,13 @@ from psi_tpu_torch.ops import gather_probes as gp
 torch.set_num_threads(1)
 
 # (B, V, J): the CPU parity shape, a ragged one at SMPL-X's joint count, and
-# one that spans several of K2's body and vertex tiles (32 x 32 in the
-# coefficient pass, 64-row blocks in the reductions) and is ragged on every
-# padded axis (bodies to 64, vertices to 256, basis rows to 64)
+# one that spans several of K1's and K2's body and vertex tiles (32 x 32 in
+# K1 and the coefficient pass, 64-row blocks in the reductions), has more
+# than 64 bodies but no multiple of 32, and is ragged on every padded axis
+# (bodies to 64, vertices to 256, basis rows to 64)
 SKIN_SHAPES = [(5, 300, 12), (13, 1001, 55), (130, 2051, 55)]
+# K1 also at a shape smaller than one tile on every axis
+K1_SHAPES = SKIN_SHAPES + [(1, 17, 3)]
 # (B, N, M): N ragged against 256 threads, M across and ragged against 1024-point tiles
 NN_SHAPES = [(3, 200, 700), (2, 300, 3000)]
 
@@ -65,13 +68,13 @@ def _skinning_case(shape, dev):
             cam_ext=t(cam),
         )[:3]
     bundle = tfs.make_skinning_bundle(model.v_template, model.shapedirs, model.posedirs, model.lbs_weights)
-    bundle = tfs.SkinningBundle(*(x.to(dev) for x in bundle[:6]), bundle.n_verts, bundle.n_feat)
+    bundle = tfs.SkinningBundle(*(x.to(dev) if isinstance(x, torch.Tensor) else x for x in bundle))
     g = t(rng.normal(0, 1.0, (B, V, 3)))
     return bundle, tuple(o.to(dev) for o in ops), g.to(dev)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SKIN_SHAPES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
 def test_k1_kernel_matches_twin(shape, card):
     bundle, ops, _ = _skinning_case(shape, card)
     n = tfs.SKIN_FWD.launches
@@ -82,6 +85,25 @@ def test_k1_kernel_matches_twin(shape, card):
     assert vk.shape == (shape[0], shape[1], 3)
     # the same bf16 operands; f32 sums over C and J in another order
     assert (vk - vt).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_k1_kernel_is_deterministic_and_writes_only_its_output(shape, card):
+    """Two runs give equal bits (nothing is summed across blocks), and with
+    the output placed inside a larger buffer of sentinels, every float
+    outside [B, V, 3] keeps its sentinel: the ragged tiles' stores are masked."""
+    bundle, ops, _ = _skinning_case(shape, card)
+    B, V, _ = shape
+    n, guard, sentinel = B * V * 3, 4099, -12345.0  # an odd guard: the output starts only 4-byte aligned
+    buf = torch.full((n + 2 * guard,), sentinel, device=card)
+    args, out, _keep = tfs.fwd_operands(*ops, bundle, out=buf[guard:guard + n].view(B, V, 3))
+    tfs.SKIN_FWD.launch(card, *args, tfs.FWD_ALL, torch.cuda.current_stream(card).cuda_stream)
+    again = tfs.fused_skinning_fwd(*ops, bundle)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert bool((buf[:guard] == sentinel).all()) and bool((buf[guard + n:] == sentinel).all())
+    assert bool((out != sentinel).all())  # and every vertex was written
 
 
 @pytest.mark.cuda
@@ -120,7 +142,26 @@ def test_skinning_rejects_operands_it_does_not_take(card):
     with pytest.raises(ValueError):  # basis width does not match cb
         tfs.fused_skinning_fwd(cb[:, :-1].contiguous(), A12, cam12, bundle)
     with pytest.raises(ValueError):  # bundle left on another device
-        tfs.fused_skinning_fwd(cb, A12, cam12, bundle._replace(w_jv=bundle.w_jv.cpu()))
+        tfs.fused_skinning_fwd(cb, A12, cam12, bundle._replace(w_vjp=bundle.w_vjp.cpu()))
+
+
+def _cut_vertex_padding(bundle):
+    """The bundle with 8 fewer padded vertices: still >= V, no longer a multiple of 256."""
+    Vp = bundle.base_cvp.shape[2] - 8
+    return bundle._replace(base_cvp=bundle.base_cvp[:, :, :Vp].contiguous(),
+                           base_vcp=bundle.base_vcp[:, :Vp].contiguous(),
+                           w_jvp=bundle.w_jvp[:, :Vp].contiguous(), w_vjp=bundle.w_vjp[:Vp].contiguous())
+
+
+@pytest.mark.cuda
+def test_k1_rejects_padding_it_does_not_take(card):
+    """K1 tiles the bundle's padded widths without ragged edges: a width
+    that is not a multiple of its tiles is refused, not read past."""
+    bundle, ops, _ = _skinning_case(SKIN_SHAPES[0], card)
+    n = tfs.SKIN_FWD.launches
+    with pytest.raises(RuntimeError):
+        tfs.fused_skinning_fwd(*ops, _cut_vertex_padding(bundle))
+    assert tfs.SKIN_FWD.launches == n
 
 
 @pytest.mark.cuda
@@ -128,13 +169,9 @@ def test_k2_rejects_padding_it_does_not_take(card):
     """K2 tiles the bundle's padded widths without ragged edges: a width
     that is not a multiple of its tiles is refused, not read past."""
     bundle, ops, g = _skinning_case(SKIN_SHAPES[0], card)
-    Vp = bundle.base_cvp.shape[2] - 8  # still >= V, no longer a multiple of 256
-    cut = bundle._replace(base_cvp=bundle.base_cvp[:, :, :Vp].contiguous(),
-                          base_vcp=bundle.base_vcp[:, :Vp].contiguous(),
-                          w_jvp=bundle.w_jvp[:, :Vp].contiguous(), w_vjp=bundle.w_vjp[:Vp].contiguous())
     n = tfs.SKIN_BWD.launches
     with pytest.raises(RuntimeError):
-        tfs.fused_skinning_bwd(*ops, cut, g)
+        tfs.fused_skinning_bwd(*ops, _cut_vertex_padding(bundle), g)
     assert tfs.SKIN_BWD.launches == n
 
 

@@ -1,11 +1,13 @@
-"""The fused-skinning bundle's padded operands, the layout K2 reads.
+"""The fused-skinning bundle's padded operands, the layout K1 and K2 read.
 
-K2 (csrc/fused_skinning.cu) stages its operands with 16-byte copies and
-tiles them without ragged edges, so the bundle carries zero-padded copies
-of the basis and the weights: C to a multiple of PAD_C, V of PAD_V, J of
-PAD_J. These tests hold the padded copies to the unpadded ones and to
-psi_tpu's own padded bundle in their valid region, to exact zeros in the
-padding, and their row pitches to multiples of 8 bf16 (16 bytes).
+The kernels (csrc/fused_skinning.cu) stage their operands with 16-byte
+copies and tile them without ragged edges, so the bundle carries the basis
+and the weights zero-padded: C to a multiple of PAD_C, V of PAD_V, J of
+PAD_J. These tests hold the padded copies, in their valid region, to the
+unpadded operands rebuilt from the model tensors and to psi_tpu's own
+padded bundle, to exact zeros in the padding, their row pitches to
+multiples of 8 bf16 (16 bytes), and the twins computed from them to the
+twins computed from unpadded operands.
 """
 
 import jax.numpy as jnp
@@ -31,7 +33,16 @@ def bundles(request):
     jm = j_synthetic_smplx(num_verts=V, num_joints=J, seed=0)
     tb = tfs.make_skinning_bundle(tm.v_template, tm.shapedirs, tm.posedirs, tm.lbs_weights)
     jb = jfs.make_skinning_bundle(jm.v_template, jm.shapedirs, jm.posedirs, jm.lbs_weights)
-    return tb, jb, V, J
+    return tb, jb, V, J, _unpadded(tm)
+
+
+def _unpadded(tm):
+    """(base [3, C, V], w_jv [J, V]) in bf16, from the model tensors: rows
+    [v_template | shapedirs | posedirs], as psi_tpu's bundle orders them."""
+    V = tm.lbs_weights.shape[0]
+    base = torch.cat([tm.v_template.T[:, None, :], tm.shapedirs.permute(1, 2, 0),
+                      tm.posedirs.reshape(-1, V, 3).permute(2, 0, 1)], dim=1)
+    return base.to(torch.bfloat16).contiguous(), tm.lbs_weights.T.to(torch.bfloat16).contiguous()
 
 
 def _f(t):
@@ -39,30 +50,31 @@ def _f(t):
 
 
 def test_padded_shapes_and_row_pitches(bundles):
-    tb, _, V, J = bundles
+    tb, _, V, J, (base, _) = bundles
     C = tb.n_feat
     Cp, Vp, Jp = (-(-C // tfs.PAD_C) * tfs.PAD_C, -(-V // tfs.PAD_V) * tfs.PAD_V, -(-J // tfs.PAD_J) * tfs.PAD_J)
     assert tb.base_cvp.shape == (3, Cp, Vp) and tb.base_vcp.shape == (3, Vp, Cp)
     assert tb.w_jvp.shape == (Jp, Vp) and tb.w_vjp.shape == (Vp, Jp)
-    for t in tb[:6]:
+    tensors = [t for t in tb if isinstance(t, torch.Tensor)]
+    assert len(tensors) == 4  # the padded copies only: no unpadded layout is kept
+    for t in tensors:
         assert t.dtype == torch.bfloat16 and t.is_contiguous()
-    for t in (tb.base_cvp, tb.base_vcp, tb.w_jvp, tb.w_vjp):
         assert t.stride(-2) % 8 == 0  # every row starts on a 16-byte boundary
-    # K1 keeps reading the unpadded layouts
-    assert tb.base_cv.shape == (3, C, V) and tb.w_jv.shape == (J, V)
+    # the valid widths ride along as integers
+    assert (tb.n_feat, tb.n_verts, tb.n_joints) == (base.shape[1], V, J)
 
 
 def test_padded_operands_equal_unpadded_in_valid_region(bundles):
-    tb, _, V, J = bundles
+    tb, _, V, J, (base, w_jv) = bundles
     C = tb.n_feat
-    np.testing.assert_array_equal(_f(tb.base_cvp[:, :C, :V]), _f(tb.base_cv))
-    np.testing.assert_array_equal(_f(tb.base_vcp[:, :V, :C]), _f(tb.base_cv.transpose(1, 2)))
-    np.testing.assert_array_equal(_f(tb.w_jvp[:J, :V]), _f(tb.w_jv))
-    np.testing.assert_array_equal(_f(tb.w_vjp[:V, :J]), _f(tb.w_jv.T))
+    np.testing.assert_array_equal(_f(tb.base_cvp[:, :C, :V]), _f(base))
+    np.testing.assert_array_equal(_f(tb.base_vcp[:, :V, :C]), _f(base.transpose(1, 2)))
+    np.testing.assert_array_equal(_f(tb.w_jvp[:J, :V]), _f(w_jv))
+    np.testing.assert_array_equal(_f(tb.w_vjp[:V, :J]), _f(w_jv.T))
 
 
 def test_padding_is_exactly_zero(bundles):
-    tb, _, V, J = bundles
+    tb, _, V, J, _ = bundles
     C = tb.n_feat
     for t, valid in ((tb.base_cvp, (slice(None), slice(0, C), slice(0, V))),
                      (tb.base_vcp, (slice(None), slice(0, V), slice(0, C))),
@@ -76,7 +88,7 @@ def test_padding_is_exactly_zero(bundles):
 def test_padded_operands_equal_psi_tpu_bundle(bundles):
     """psi_tpu pads to its own multiples (C to 128, V to 256, J to 128):
     both hold the same bf16 values where both have room, zeros elsewhere."""
-    tb, jb, V, J = bundles
+    tb, jb, V, J, _ = bundles
     Cp, Vp = tb.base_cvp.shape[1:]
     Jp = tb.w_jvp.shape[0]
     for y in range(3):
@@ -89,3 +101,20 @@ def test_padded_operands_equal_psi_tpu_bundle(bundles):
     np.testing.assert_array_equal(_f(tb.w_vjp[:v, :j]), jw[:v, :j])
     np.testing.assert_array_equal(_f(tb.w_jvp[:j, :v]), np.asarray(jb.w_jv.astype(jnp.float32))[:j, :v])
 
+
+def test_twins_from_padded_copies_equal_twins_from_unpadded_operands(bundles):
+    """The twins read the valid region of the padded copies. Given a bundle
+    that holds the unpadded operands themselves (Cp = C, Vp = V, Jp = J) they
+    must return the same bits: the padding never enters a sum. B = 7 bodies,
+    not a multiple of 8."""
+    tb, _, V, J, (base, w_jv) = bundles
+    C = tb.n_feat
+    bare = tfs.SkinningBundle(base, base.transpose(1, 2).contiguous(), w_jv, w_jv.T.contiguous(), V, C, J)
+    rng = np.random.default_rng(3)
+    cb, A12, cam12, g = (torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+                         for s, shape in ((0.3, (7, C)), (0.5, (7, J, 12)), (1.0, (7, 12)), (1.0, (7, V, 3))))
+    np.testing.assert_array_equal(tfs.fused_skinning_fwd_reference(cb, A12, cam12, tb).numpy(),
+                                  tfs.fused_skinning_fwd_reference(cb, A12, cam12, bare).numpy())
+    for a, b in zip(tfs.fused_skinning_bwd_reference(cb, A12, cam12, tb, g),
+                    tfs.fused_skinning_bwd_reference(cb, A12, cam12, bare, g)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
