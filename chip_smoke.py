@@ -30,9 +30,11 @@ and then the probe path, the SDF variants and the eval scorers:
 
   8. P1-P4    python -m psi_tpu_torch.scripts.profile_vmem_gather's
               support, throughput and relayout phases at the script's
-              shapes: each probe kernel exactly equal to its twin, kernel
-              and twin ms, gathered elements/s; its hbm phase: ns/index of
-              the global packed-row gather. Launch counts of the run.
+              shapes: each probe kernel exactly equal to its twin; kernel,
+              twin and (P1, P2) torch.gather timed as one wrapper call and
+              on the device alone; gathered elements/s; its hbm phase:
+              ns/index of the global packed-row gather. Launch counts of
+              the run.
   9. sdf      profile_sdf's five SDF lookup variants, one timed rep each
  10. eval     the fitted N=256 population of phase 6 scored on the card
               and on the CPU (collision_contact_scores, diversity_metrics
@@ -47,6 +49,9 @@ the bytes the function must move (each input read once, each output written
 once) over the card's memory rate and its operations over the card's peak
 rate for their type (PEAK below), from this run's shapes; and, where one
 PyTorch call computes the same function, that call's time (library_ms).
+ms, plain_ms and library_ms are one wrapper call between a pair of CUDA
+events, host path included; device_ms is the kernel's wrapper with the
+host taken out (20 calls replayed from a CUDA graph, over 20).
 """
 
 from __future__ import annotations
@@ -190,7 +195,7 @@ def check_k1(cb, A12, cam12, bundle, build_log: str, k1_bound: dict):
     from psi_tpu_torch.ops import _cuda
     from psi_tpu_torch.ops.fused_skinning import (FWD_ALL, FWD_STAGES, fused_skinning_fwd,
                                                   fused_skinning_fwd_reference, fwd_operands)
-    from psi_tpu_torch.utils.timing import cuda_ms
+    from psi_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
 
     verts = fused_skinning_fwd(cb, A12, cam12, bundle)
     again = fused_skinning_fwd(cb, A12, cam12, bundle)
@@ -199,12 +204,13 @@ def check_k1(cb, A12, cam12, bundle, build_log: str, k1_bound: dict):
     bit_equal = torch.equal(verts, again)
     err = (verts - ref).abs().max().item()
     ms = cuda_ms(lambda: fused_skinning_fwd(cb, A12, cam12, bundle))
+    device_ms = cuda_device_ms(lambda: fused_skinning_fwd(cb, A12, cam12, bundle))
     plain_ms = cuda_ms(lambda: fused_skinning_fwd_reference(cb, A12, cam12, bundle))
     args, _, _keep = fwd_operands(cb, A12, cam12, bundle)
     alone = stage_ms("psi_skin_fwd", args, FWD_STAGES, FWD_ALL, _cuda.stream_of(cb))
     log(f"[K1] fused_skinning_fwd B={cb.shape[0]} V={bundle.n_verts} J={A12.shape[1]} C={cb.shape[1]}: "
         f"max |kernel - twin| = {err:.3e} m (tol {K1_ABS_TOL}); two runs bit-equal: {bit_equal}; "
-        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms a call, {device_ms:.4f} ms on the device, twin {plain_ms:.4f} ms")
     log("[K1] launches alone: " + ", ".join(f"{n} {v:.4f} ms" for n, v in alone.items())
         + f"; sum {sum(alone.values()):.4f} ms; whole K1 call {ms:.4f} ms; bound {k1_bound['bound_ms']:.4f} ms "
         f"({k1_bound['bound_by']}): the main launch takes {alone['main'] / k1_bound['bound_ms']:.1f}x its bound; "
@@ -213,7 +219,8 @@ def check_k1(cb, A12, cam12, bundle, build_log: str, k1_bound: dict):
         raise AssertionError("K1 is not deterministic")
     if not err <= K1_ABS_TOL:
         raise AssertionError(f"K1 disagrees with its twin: {err}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "stage_ms": alone, "library_ms": None, **k1_bound}
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "stage_ms": alone,
+            "library_ms": None, **k1_bound}
 
 
 # K1's and K2's kernels that compute a product: each must hold tensor-core instructions
@@ -262,7 +269,7 @@ def check_k2(cb, A12, cam12, bundle, k2_bound: dict):
     from psi_tpu_torch.ops import _cuda
     from psi_tpu_torch.ops.fused_skinning import (BWD_ALL, BWD_STAGES, bwd_operands, fused_skinning_bwd,
                                                   fused_skinning_bwd_reference)
-    from psi_tpu_torch.utils.timing import cuda_ms
+    from psi_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
 
     gen = torch.Generator().manual_seed(SEED + 2)
     g = torch.randn((cb.shape[0], bundle.n_verts, 3), generator=gen).to(cb.device)
@@ -275,12 +282,14 @@ def check_k2(cb, A12, cam12, bundle, k2_bound: dict):
     rel = {n: ((a - r).abs().max() / r.abs().max()).item() for n, a, r in zip(names, run1, ref)}
     err = max((a - r).abs().max().item() for a, r in zip(run1, ref))
     ms = cuda_ms(lambda: fused_skinning_bwd(cb, A12, cam12, bundle, g))
+    device_ms = cuda_device_ms(lambda: fused_skinning_bwd(cb, A12, cam12, bundle, g))
     plain_ms = cuda_ms(lambda: fused_skinning_bwd_reference(cb, A12, cam12, bundle, g))
     args, _, _keep = bwd_operands(cb, A12, cam12, bundle, g)
     alone = stage_ms("psi_skin_bwd", args, BWD_STAGES, BWD_ALL, _cuda.stream_of(cb))
     log(f"[K2] fused_skinning_bwd: max |kernel - twin| / max |twin| = "
         + ", ".join(f"{n} {v:.3e}" for n, v in rel.items())
-        + f" (tol {K2_REL_TOL}); two runs bit-equal: {bit_equal}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+        + f" (tol {K2_REL_TOL}); two runs bit-equal: {bit_equal}; kernel {ms:.4f} ms a call, {device_ms:.4f} ms "
+        f"on the device, twin {plain_ms:.4f} ms")
     log("[K2] launches alone: " + ", ".join(f"{n} {v:.4f} ms" for n, v in alone.items())
         + f"; sum {sum(alone.values()):.4f} ms; whole K2 call {ms:.4f} ms; twin {plain_ms:.4f} ms; "
         f"bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']})")
@@ -288,15 +297,15 @@ def check_k2(cb, A12, cam12, bundle, k2_bound: dict):
         raise AssertionError("K2 is not deterministic")
     if not max(rel.values()) <= K2_REL_TOL:
         raise AssertionError(f"K2 disagrees with its twin: {rel}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "rel_err": rel, "stage_ms": alone,
-            "library_ms": None, **k2_bound}
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "rel_err": rel,
+            "stage_ms": alone, "library_ms": None, **k2_bound}
 
 
 def check_k3(x, y_pruned, y_full):
     import torch
 
     from psi_tpu_torch.ops.chamfer import nn_argmin, nn_argmin_reference
-    from psi_tpu_torch.utils.timing import cuda_ms
+    from psi_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
 
     out = {}
     for label, y in (("pruned", y_pruned), ("full", y_full)):
@@ -312,6 +321,7 @@ def check_k3(x, y_pruned, y_full):
         agree = 1.0 - differ.float().mean().item()
         non_tie = (differ & ((dk - dt).abs() > K3_REL_TOL * dt.clamp(min=1e-12))).sum().item()
         ms = cuda_ms(lambda: nn_argmin(x, y))
+        device_ms = cuda_device_ms(lambda: nn_argmin(x, y))
         plain_ms = cuda_ms(lambda: nn_argmin_reference(x, y))
         # no single PyTorch call computes the argmin; cdist then argmin (two
         # calls, a [B, N, M] matrix through device memory) is the nearest
@@ -322,11 +332,13 @@ def check_k3(x, y_pruned, y_full):
         k3_bound = bound(4 * (3 * B * N + 3 * B * M + B * N), f32=9 * B * N * M)
         log(f"[K3] chamfer_nn_argmin B={B} N={N} M={M}: max rel distance err "
             f"{rel:.3e} (tol {K3_REL_TOL}); index agreement {agree:.6f} ({int(differ.sum())} differ, "
-            f"{non_tie} not ties); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, torch.cdist + argmin "
+            f"{non_tie} not ties); kernel {ms:.4f} ms a call, {device_ms:.4f} ms on the device, twin "
+            f"{plain_ms:.4f} ms, torch.cdist + argmin "
             f"{cdist_ms:.4f} ms; bound {k3_bound['bound_ms']:.4f} ms ({k3_bound['bound_by']})")
         if not rel <= K3_REL_TOL or non_tie:
             raise AssertionError(f"K3 disagrees with its twin at {label}: rel {rel}, {non_tie} non-tie")
-        out[label] = {"max_abs_err": (dk - dt).abs().max().item(), "ms": ms, "plain_ms": plain_ms,
+        out[label] = {"max_abs_err": (dk - dt).abs().max().item(), "ms": ms, "device_ms": device_ms,
+                      "plain_ms": plain_ms,
                       "library_ms": None, "cdist_argmin_ms": cdist_ms, **k3_bound}
     return out
 
@@ -351,7 +363,8 @@ def check_probes(dev):
             CHAINED_GATHER.name: res["throughput"], RELAYOUT.name: res["relayout"]}
     for name, r in rows.items():
         r.update(bound(r["bytes"], f32=r["f32_ops"]))
-        log(f"[probes] {name}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel {r['ms']:.4f} ms")
+        log(f"[probes] {name}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel {r['ms']:.4f} ms a call, "
+            f"{r['device_ms']:.4f} ms on the device")
     return rows, launches, res["hbm"]
 
 
@@ -550,7 +563,8 @@ def smoke(dev) -> None:
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": counts[k.name], "max_abs_err": res["max_abs_err"],
-             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+             "ms": res["ms"], "device_ms": res["device_ms"], "plain_ms": res["plain_ms"],
+             "bound_ms": res["bound_ms"],
              "bound_by": res["bound_by"], "library_ms": res["library_ms"]} for k, res, counts in results]
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb},

@@ -122,7 +122,9 @@ def _per_body_losses(
             assets.sdf_packed, scene_idx, verts, assets.grid_mins, assets.grid_maxs
         )
         sdf_cache = None
-    neg = torch.clamp(body_sdf, max=0.0)
+    # min(sdf, 0) with jnp.minimum's derivative, 0.5 at sdf == 0 (torch.clamp
+    # passes all of the gradient there)
+    neg = torch.minimum(body_sdf, body_sdf.new_zeros(()))
     cnt = torch.clamp(torch.sum(body_sdf < 0, dim=1), min=1).to(xhr.dtype)
     loss_collision = cfg.weight_collision * (-torch.sum(neg, dim=1) / cnt)
 

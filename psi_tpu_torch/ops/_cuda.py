@@ -6,7 +6,7 @@ into a shared library with a plain C interface, at first use, under
 library name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. The library
 is bound with ``ctypes``: pointers and the stream are ``c_void_p``, from
-``Tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
+``Tensor.data_ptr()`` and the current stream's handle (``stream_of``).
 
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()`` after its launches; a
@@ -49,6 +49,7 @@ SIGNATURES: Dict[str, List] = {
     "psi_probe_lane_gather": [_P] * 3 + [_I] * 2 + [_P],
     "psi_probe_chained_gather": [_P] * 3 + [_I] * 4 + [_P],
     "psi_probe_relayout": [_P] * 2 + [_I] * 4 + [_P],
+    "psi_probe_smem_opt_ins": [],
 }
 RESTYPES = {"psi_skin_fwd_workspace": ctypes.c_size_t, "psi_skin_bwd_workspace": ctypes.c_size_t}
 
@@ -120,7 +121,9 @@ def library() -> ctypes.CDLL:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle (cudaStream_t, as an int) of the current stream of ``t``'s
+    device, without building a ``torch.cuda.Stream`` around it."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 class Kernel:
@@ -137,10 +140,17 @@ class Kernel:
         self.source = source  # path of the CUDA source, relative to the repo root
         self.replaces = replaces  # the Pallas kernel it ports, file:line
         self.launches = 0
+        self._entry = None  # the bound C function, looked up at the first launch
 
     def launch(self, device: torch.device, *args) -> None:
-        with torch.cuda.device(device):
-            err = getattr(library(), self.symbol)(*args)
+        entry = self._entry
+        if entry is None:
+            entry = self._entry = getattr(library(), self.symbol)
+        if device.index == torch._C._cuda_getDevice():
+            err = entry(*args)
+        else:  # the entry point launches on the current device: make it the tensors'
+            with torch.cuda.device(device):
+                err = entry(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with cudaError {err}")
         self.launches += 1

@@ -17,6 +17,9 @@ raise); P3 takes its indices mod L, as the probe does.
 Dispatch follows the tensors' device: a CPU tensor takes the plain twin,
 a CUDA tensor launches the kernel or raises. Kernel and twin agree
 exactly: the gathers copy values, and P3/P4 add in the same order.
+P1 and P2 move 16 bytes at a time when L is a multiple of 4 and the
+tensors' storage is 16-byte aligned (any tensor PyTorch allocates is), and
+4 bytes at a time otherwise, e.g. for a contiguous view at an odd offset.
 """
 
 from __future__ import annotations
@@ -68,27 +71,34 @@ def relayout_reference(c: torch.Tensor, n_arrays: int = 7, lanes: int = 128) -> 
     return acc[..., None].expand(-1, -1, lanes).contiguous()
 
 
-def _check_pair(t: torch.Tensor, idx: torch.Tensor, ndim: int, name: str) -> None:
+def _takes_twin(t: torch.Tensor, idx: torch.Tensor, ndim: int, name: str) -> bool:
+    """True for a CPU pair (the twin's), False for a CUDA pair that the
+    kernels take: one [..] shape of ``ndim`` dims, one device, and on the
+    card contiguous f32 and int32. Raises on anything else; each property is
+    looked at once."""
     if t.dim() != ndim or idx.shape != t.shape:
         raise ValueError(f"{name} takes a table and an index array of one {ndim}-D shape, "
                          f"got {tuple(t.shape)} and {tuple(idx.shape)}")
-    if t.device != idx.device:
-        raise ValueError(f"{name}: table on {t.device}, indices on {idx.device}")
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda tensors, got {t.device}")
-
-
-def _check_operands(t: torch.Tensor, idx: torch.Tensor) -> None:
-    _cuda.check(t, "table", torch.float32, tuple(t.shape), t.device)
-    _cuda.check(idx, "indices", torch.int32, tuple(t.shape), t.device)
+    if t.is_cuda and idx.is_cuda:
+        if t.get_device() != idx.get_device():
+            raise ValueError(f"{name}: table on {t.device}, indices on {idx.device}")
+        if t.dtype is not torch.float32 or idx.dtype is not torch.int32:
+            raise TypeError(f"{name} takes a float32 table and int32 indices, got {t.dtype} and {idx.dtype}")
+        if not (t.is_contiguous() and idx.is_contiguous()):
+            raise ValueError(f"{name}: table and indices must be contiguous")
+        return False
+    dev = t.device
+    if idx.device != dev:
+        raise ValueError(f"{name}: table on {dev}, indices on {idx.device}")
+    if dev.type != "cpu":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {dev}")
+    return True
 
 
 def row_gather(t: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """P1: t [rows, L] f32, r [rows, L] int32 -> out[i, j] = t[r[i, j], j]."""
-    _check_pair(t, r, 2, "row_gather")
-    if t.device.type == "cpu":
+    if _takes_twin(t, r, 2, "row_gather"):
         return row_gather_reference(t, r)
-    _check_operands(t, r)
     rows, L = t.shape
     if rows > MAX_ROW_GATHER_ROWS:
         raise ValueError(f"row_gather stages a column of every row in shared memory: rows <= {MAX_ROW_GATHER_ROWS}")
@@ -99,10 +109,8 @@ def row_gather(t: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 def lane_gather(t: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
     """P2: t [rows, L] f32, l [rows, L] int32 -> out[i, j] = t[i, l[i, j]]."""
-    _check_pair(t, l, 2, "lane_gather")
-    if t.device.type == "cpu":
+    if _takes_twin(t, l, 2, "lane_gather"):
         return lane_gather_reference(t, l)
-    _check_operands(t, l)
     rows, L = t.shape
     if L > MAX_LANES:
         raise ValueError(f"lane_gather stages 16 rows in shared memory: L <= {MAX_LANES}")
@@ -114,12 +122,10 @@ def lane_gather(t: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
 def chained_gather(t: torch.Tensor, l: torch.Tensor, n_gathers: int = 8) -> torch.Tensor:
     """P3: t [G, rows, L] f32, l [G, rows, L] int32 -> the sum of n_gathers
     lane gathers at l, l + 1, ... (mod L)."""
-    _check_pair(t, l, 3, "chained_gather")
     if n_gathers < 0:
         raise ValueError("n_gathers must be >= 0")
-    if t.device.type == "cpu":
+    if _takes_twin(t, l, 3, "chained_gather"):
         return chained_gather_reference(t, l, n_gathers)
-    _check_operands(t, l)
     G, rows, L = t.shape
     if L > MAX_LANES or G > 65535:
         raise ValueError(f"chained_gather takes L <= {MAX_LANES} and at most 65535 bodies")

@@ -18,8 +18,11 @@ alone, at the JAX script's shapes:
               indexing): 256 x 10475 indices into 4 x 128^3 8-float rows
 
 Each kernel phase holds the kernel to its plain twin (exactly equal) and
-times both with CUDA events (median of 10 after a warm-up); P1 and P2
-also beside the one PyTorch call that computes them (``torch.gather`` on
+times both with CUDA events, by two timers: one wrapper call between a pair
+of events (median of 10 after a warm-up; mostly the call's host path when
+the kernel takes microseconds) and the device's time alone (20 calls
+captured in a CUDA graph, the replay's time over 20). P1 and P2 also stand
+beside the one PyTorch call that computes them (``torch.gather`` on
 int64 indices; P3 and P4 have no such call). Each result carries the
 bytes the function must move (inputs read once, output written once) and
 its f32 operations, from which a caller works out its bound. The last line
@@ -35,7 +38,7 @@ from typing import Dict, List
 import torch
 
 from psi_tpu_torch.ops import gather_probes as gp
-from psi_tpu_torch.utils.timing import card, cuda_ms, nvidia_smi
+from psi_tpu_torch.utils.timing import card, cuda_device_ms, cuda_ms, nvidia_smi
 
 R, L = 2304, 128  # table shape: 48x48 (x, y) rows, 128 (z) lanes
 SUPPORT_ROWS = (8, 128, 512, 2304)
@@ -53,20 +56,26 @@ def _nbytes(*tensors: torch.Tensor) -> int:
 def _held_to_twin(tag: str, what: str, kernel_fn, twin_fn, elems: int, inputs, f32_ops: int = 0,
                   library_fn=None) -> Dict:
     """Run kernel and twin once, require equal outputs, time both (and the
-    one PyTorch call that computes the same, if there is one); one line."""
+    one PyTorch call that computes the same, if there is one) as a wrapper
+    call and on the device alone; one line."""
     out, ref = kernel_fn(), twin_fn()
     torch.cuda.synchronize()
     equal = torch.equal(out, ref)
     err = (out - ref).abs().max().item()
-    ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(twin_fn)
-    library_ms = cuda_ms(library_fn) if library_fn is not None else None
-    rate = elems / (ms * 1e-3)
-    print(f"[{tag}] {what}: kernel == twin: {equal} (max abs err {err:.3e}, tol 0); kernel {ms:.4f} ms, "
-          f"twin {plain_ms:.4f} ms" + (f", library call {library_ms:.4f} ms" if library_fn is not None else "")
+    fns = {"kernel": kernel_fn, "twin": twin_fn}
+    if library_fn is not None:
+        fns["library call"] = library_fn
+    call = {name: cuda_ms(fn) for name, fn in fns.items()}
+    device = {name: cuda_device_ms(fn) for name, fn in fns.items()}
+    rate = elems / (call["kernel"] * 1e-3)
+    print(f"[{tag}] {what}: kernel == twin: {equal} (max abs err {err:.3e}, tol 0); "
+          + ", ".join(f"{name} {call[name]:.4f} ms a call, {device[name]:.4f} ms on the device" for name in fns)
           + f"; {rate / 1e9:.2f} G elems/s", flush=True)
     if not equal:
         raise AssertionError(f"{tag} {what}: kernel disagrees with its twin (max abs err {err})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "elems_per_s": rate,
+    return {"max_abs_err": err, "ms": call["kernel"], "plain_ms": call["twin"], "library_ms": call.get("library call"),
+            "device_ms": device["kernel"], "plain_device_ms": device["twin"],
+            "library_device_ms": device.get("library call"), "elems_per_s": rate,
             "bytes": _nbytes(*inputs, out), "f32_ops": f32_ops}
 
 

@@ -49,6 +49,7 @@ def test_scripts_and_eval_load_without_jax():
         "import psi_tpu_torch.eval, psi_tpu_torch.scripts.profile_vmem_gather\n"
         "import psi_tpu_torch.scripts.profile_gather, psi_tpu_torch.scripts.profile_sdf\n"
         "import psi_tpu_torch.scripts.profile_fit, psi_tpu_torch.scripts.tune_skin_fwd\n"
+        "import psi_tpu_torch.scripts.tune_gather_probes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -58,7 +59,7 @@ def test_scripts_and_eval_load_without_jax():
 
 
 @pytest.mark.parametrize("script", ["profile_vmem_gather", "profile_gather", "profile_sdf", "profile_fit",
-                                    "tune_skin_fwd"])
+                                    "tune_skin_fwd", "tune_gather_probes"])
 def test_profiling_entry_points_fail_without_a_card(script):
     """A measurement never falls back to the CPU."""
     r = _run(["-m", f"psi_tpu_torch.scripts.{script}"], ROOT)

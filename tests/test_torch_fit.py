@@ -230,3 +230,98 @@ def test_config_fields_are_psi_tpus(name):
     assert fields(tc) == fields(jc)
     assert dataclasses.asdict(FitConfig.production(num_iter=7)) == dataclasses.asdict(JFitConfig.production(num_iter=7))
     assert dataclasses.asdict(FitConfig.exact()) == dataclasses.asdict(JFitConfig.exact())
+
+
+def _tie_scene(world, grid):
+    """Both packages' assets with scene grids on which every vertex's SDF is
+    exactly 0 while its spatial gradient is not.
+
+    A cell whose corners are all 0 has a zero gradient too, so it cannot tell
+    min's subgradient from clamp's. Instead the grid is -A below the middle x
+    plane and +A above it, and the bounds are +-2^29: a metre-scale coordinate
+    is absorbed when the lower bound is subtracted, so every vertex normalizes
+    to exactly 0, i.e. voxel coordinate (D - 1) / 2 = 7.5, weight exactly 0.5
+    on either side: sdf = -A/2 + A/2 = 0, d sdf / d x = 2A per voxel."""
+    ja, ta = world["assets"][grid]
+    S, D = ja.sdf_packed.shape[0], ja.sdf_packed.shape[1]
+    A = np.float32(2.0 ** 20)  # exact in bf16; makes up for the 2^-29 of the bounds
+    sdf = np.where(np.arange(D)[:, None, None] < D // 2, -A, A).astype(np.float32)
+    sdf = np.broadcast_to(sdf, (S, D, D, D))
+    from psi_tpu.ops.sdf import pack_sdf_corners as j_pack
+    from psi_tpu_torch.ops.sdf import pack_sdf_corners as t_pack
+
+    lo = np.full((S, 3), -(2.0 ** 29), np.float32)
+    hi = np.full((S, 3), 2.0 ** 29, np.float32)
+    ja = ja.replace(sdf_packed=j_pack(jnp.asarray(sdf)).astype(ja.sdf_packed.dtype),
+                    grid_mins=jnp.asarray(lo), grid_maxs=jnp.asarray(hi))
+    import dataclasses
+
+    ta = dataclasses.replace(ta, sdf_packed=t_pack(torch.from_numpy(sdf.copy())).to(ta.sdf_packed.dtype),
+                             grid_mins=torch.from_numpy(lo), grid_maxs=torch.from_numpy(hi))
+    return ja, ta
+
+
+@pytest.mark.parametrize("tier", ["production", "exact"])
+def test_collision_subgradient_at_zero_sdf_matches_jax(world, tier):
+    """At sdf == 0 jnp.minimum(sdf, 0) passes half of the gradient; the
+    port's collision term must too (torch.clamp would pass all of it).
+    Gradient of the summed collision term with respect to the body vector,
+    full pass, held to a fraction of its largest component: 1e-6 in the
+    production tier (both sides round to bf16 at the same places; f32 sums
+    in another order), 3e-4 in the exact tier, where psi_tpu's split-bf16
+    'high' products meet the port's f32 (found 1.0e-4). The wrong
+    subgradient is off by the whole of that component."""
+    from psi_tpu.body.smplx_model import make_fused_bundle as j_bundle
+    from psi_tpu.fit.fitting import _per_body_losses as j_losses
+    from psi_tpu.geometry.bodyvec import convert_to_6D_rot as j_to_6d
+    from psi_tpu_torch.body.smplx_model import make_fused_bundle as t_bundle
+    from psi_tpu_torch.fit.fitting import _per_body_losses as t_losses
+    from psi_tpu_torch.geometry.bodyvec import convert_to_6D_rot as t_to_6d
+    from psi_tpu_torch.utils.precision import strict_f32
+
+    production = tier == "production"
+    ja, ta = _tie_scene(world, "bf16" if production else "f32")
+    jcfg = JFitConfig.production(**PRODUCTION) if production else JFitConfig.exact(**EXACT)
+    tcfg = FitConfig.production(**PRODUCTION) if production else FitConfig.exact(**EXACT)
+    cam, sidx = world["cam"], world["sidx"]
+
+    xj = j_to_6d(jnp.asarray(world["x72"]))
+    jb = j_bundle(ja.smplx) if production else None
+
+    def j_collision(x):
+        _, (m, _) = j_losses(ja, x, xj, jnp.asarray(cam), jnp.asarray(sidx), jcfg, fused_bundle=jb)
+        return jnp.sum(m["collision"])
+
+    vj, gj = jax.value_and_grad(j_collision)(xj)
+    gj = np.asarray(gj)
+
+    xt0 = t_to_6d(torch.from_numpy(world["x72"]))
+    tb = t_bundle(ta.smplx) if production else None
+    grads = {}
+    for name, neg_fn in (("minimum", None), ("clamp", lambda s: torch.clamp(s, max=0.0))):
+        x = xt0.clone().requires_grad_(True)
+        with strict_f32():
+            _, (m, _) = t_losses(ta, x, xt0, torch.from_numpy(cam), torch.from_numpy(sidx).long(), tcfg,
+                                 fused_bundle=tb)
+            if neg_fn is None:
+                value = m["collision"].sum()
+            else:  # what the term gave before the repair, rebuilt from the same SDF values
+                from psi_tpu_torch.body.decode import body_vec_to_verts
+                from psi_tpu_torch.geometry.bodyvec import convert_to_3D_rot
+                from psi_tpu_torch.ops.sdf import sdf_trilinear_packed
+
+                verts = body_vec_to_verts(ta.smplx, ta.vposer, convert_to_3D_rot(x), torch.from_numpy(cam),
+                                          precision=tcfg.lbs_precision, fused_bundle=tb)[0]
+                s = sdf_trilinear_packed(ta.sdf_packed, torch.from_numpy(sidx).long(), verts, ta.grid_mins,
+                                         ta.grid_maxs)
+                assert bool((s == 0).all())  # every vertex sits exactly on the tie
+                value = tcfg.weight_collision * (-neg_fn(s).sum(dim=1)).sum()
+            (grads[name],) = torch.autograd.grad(value, x)
+    gt, gc = grads["minimum"].numpy(), grads["clamp"].numpy()
+
+    assert float(vj) == 0.0 and float(value.detach()) == 0.0  # forward values do not change
+    scale = np.abs(gj).max()
+    assert scale > 0
+    np.testing.assert_allclose(gt, gj, rtol=0, atol=(1e-6 if production else 3e-4) * scale)
+    np.testing.assert_allclose(gc, 2.0 * gt, rtol=0, atol=1e-6 * scale)  # clamp passed all of it: twice as much
+    assert np.abs(gc - gj).max() > 0.4 * scale

@@ -236,11 +236,16 @@ def test_nn_argmin_rejects_operands_it_does_not_take(card):
 
 
 # P1-P4, the shared-memory gather probes. (rows, L): rows ragged against
-# the 256-row chunk, L ragged against the 16-column strip, and a table tall
-# enough that the strip narrows to 8 columns.
-ROW_SHAPES = [(8, 128), (300, 128), (2304, 128), (5000, 100)]
-# (rows, L): rows ragged against the 16-row block
-LANE_SHAPES = [(8, 128), (37, 128), (2304, 128), (20, 200)]
+# the 256-row chunk, L ragged against the 16-column strip, the probe
+# script's four heights, an L that is no multiple of 4 (the 4-byte route),
+# and tables tall enough that the strip narrows to 8 and to 4 columns (still
+# 16-byte copies) and to 2 (4-byte copies).
+ROW_SHAPES = [(8, 128), (300, 128), (2304, 128), (5000, 100), (128, 128), (512, 128), (300, 100), (37, 130),
+              (7300, 8), (15000, 8), (15000, 6)]
+# (rows, L): rows ragged against the 16-row block, the four heights, an L
+# that is no multiple of 4, and rows wide enough (over 768 floats) that a
+# block's 16 of them need the shared-memory opt-in
+LANE_SHAPES = [(8, 128), (37, 128), (2304, 128), (20, 200), (128, 128), (512, 128), (23, 130), (21, 1000)]
 # (G, rows, L, n_gathers)
 CHAINED_SHAPES = [(3, 37, 128, 8), (5, 512, 128, 8), (2, 17, 100, 3)]
 # (G, A, B, lanes): G*A*B rows ragged against a block's 8 warps
@@ -313,6 +318,117 @@ def test_probes_give_nan_for_an_index_outside_the_table(card):
     assert torch.isnan(gp.row_gather(t, r)[3, 5])
     assert torch.isnan(gp.lane_gather(t, l)[3, 5])
     assert int(torch.isnan(gp.row_gather(t, r)).sum()) == 1
+
+
+def _odd_view(x):
+    """A contiguous copy of ``x`` whose storage starts 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odd", ["table", "indices", "both"])
+def test_p1_p2_take_a_view_at_an_odd_offset(odd, card):
+    """A contiguous view that is only 4-byte aligned is taken by the 4-byte
+    route, and read rightly."""
+    t, r = _table((300, 128), 300, card)
+    _, l = _table((300, 128), 128, card, seed=1)
+    tv = _odd_view(t) if odd != "indices" else t
+    rv, lv = (_odd_view(r), _odd_view(l)) if odd != "table" else (r, l)
+    assert torch.equal(gp.row_gather(tv, rv), gp.row_gather_reference(t, r))
+    assert torch.equal(gp.lane_gather(tv, lv), gp.lane_gather_reference(t, l))
+
+
+@pytest.mark.cuda
+def test_p1_p2_refuse_a_strided_view(card):
+    t, r = _table((64, 256), 64, card)
+    with pytest.raises(ValueError):
+        gp.row_gather(t[:, ::2], r[:, ::2])
+    with pytest.raises(ValueError):
+        gp.lane_gather(t[:, :128], r[:, :128])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [128, 130])
+def test_p1_p2_nan_on_both_routes_and_equal_runs(L, card):
+    """An index outside the table gives NaN and nothing else changes, on the
+    16-byte route (L = 128) and the 4-byte route (L = 130); two runs give
+    equal bits."""
+    t, r = _table((300, L), 300, card)
+    _, l = _table((300, L), L, card, seed=1)
+    r[7, 9], r[299, L - 1], l[7, 9], l[0, 0] = 300, -1, L, -5
+    for fn, idx, ref_fn, bad in ((gp.row_gather, r, gp.row_gather_reference, [(7, 9), (299, L - 1)]),
+                                 (gp.lane_gather, l, gp.lane_gather_reference, [(7, 9), (0, 0)])):
+        out, again = fn(t, idx), fn(t, idx)
+        assert torch.equal(out.nan_to_num(nan=123.0), again.nan_to_num(nan=123.0))
+        assert int(torch.isnan(out).sum()) == 2 and all(bool(torch.isnan(out[i, j])) for i, j in bad)
+        safe = idx.clone()
+        for i, j in bad:
+            safe[i, j] = 0
+        ref = ref_fn(t, safe)
+        for i, j in bad:
+            ref[i, j] = float("nan")
+        assert torch.equal(out.nan_to_num(nan=123.0), ref.nan_to_num(nan=123.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", [4096, 4099])
+@pytest.mark.parametrize("shape", [(300, 128), (37, 130), (2304, 128)])
+def test_p1_p2_write_only_their_output(shape, guard, card):
+    """With the output placed inside a larger buffer of sentinels (16-byte
+    aligned after 4096 floats, 4-byte aligned after 4099), every float
+    outside it keeps its sentinel and every float inside is written."""
+    from psi_tpu_torch.ops import _cuda
+
+    rows, L = shape
+    t, r = _table(shape, rows, card)
+    _, l = _table(shape, L, card, seed=1)
+    n, sentinel = rows * L, -12345.0
+    for kernel, idx, ref in ((gp.ROW_GATHER, r, gp.row_gather_reference(t, r)),
+                             (gp.LANE_GATHER, l, gp.lane_gather_reference(t, l))):
+        buf = torch.full((n + 2 * guard,), sentinel, device=card)
+        out = buf[guard:guard + n].view(rows, L)
+        kernel.launch(card, t.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, L, _cuda.stream_of(t))
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        assert bool((buf[:guard] == sentinel).all()) and bool((buf[guard + n:] == sentinel).all())
+
+
+@pytest.mark.cuda
+def test_probes_opt_in_to_large_shared_memory_once(card):
+    """P1 at 2304 rows (74 KB a block) and P2 at L = 1000 (64 KB) need the
+    opt-in above 48 KB: it is made at a kernel's first such launch on a
+    device and never again."""
+    from psi_tpu_torch.ops import _cuda
+
+    t, r = _table((2304, 128), 2304, card)
+    tw, lw = _table((21, 1000), 1000, card)
+    gp.row_gather(t, r)
+    gp.lane_gather(tw, lw)
+    made = _cuda.library().psi_probe_smem_opt_ins()
+    assert 2 <= made <= 5  # at most one for each of P1's and P2's two routes and P3
+    for _ in range(3):
+        gp.row_gather(t, r)
+        gp.lane_gather(tw, lw)
+    t2, r2 = _table((5000, 100), 5000, card)  # 160 KB a block, the same kernel
+    assert torch.equal(gp.row_gather(t2, r2), gp.row_gather_reference(t2, r2))
+    assert _cuda.library().psi_probe_smem_opt_ins() == made
+
+
+@pytest.mark.cuda
+def test_launch_binds_its_entry_point_once(card):
+    """Kernel.launch looks its C function up at the first launch and keeps
+    it; the count goes up by one a launch."""
+    t, l = _table((37, 128), 128, card)
+    gp.lane_gather(t, l)
+    entry, n = gp.LANE_GATHER._entry, gp.LANE_GATHER.launches
+    assert entry is not None
+    gp.lane_gather(t, l)
+    assert gp.LANE_GATHER._entry is entry and gp.LANE_GATHER.launches == n + 1
 
 
 @pytest.mark.cuda
