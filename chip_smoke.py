@@ -11,15 +11,19 @@ verts), with random weights made from a seed. Phases, one line each:
 
   1. device   torch / CUDA versions, the card's name and power limit
   2. build    nvcc builds csrc/*.cu into build/kernels (seconds printed);
-              ptxas' registers and spills, and the count of tensor-core
-              (HMMA) instructions in each of K1's and K2's kernels from
-              cuobjdump
+              ptxas' registers and spills, and from cuobjdump the count of
+              tensor-core (HMMA) instructions in each of K1's and K2's
+              kernels (none may have 0) and of fused multiply-adds (FFMA) in
+              K3's (must be 0: its bits rest on no contraction)
   3. K1       fused skinning forward vs its plain twin, two runs
               bit-equal; the time of each of its two launches beside the
               whole call, its registers and shared memory, its bound
   4. K2       fused skinning backward vs its twin, two runs bit-equal;
               the time of each of its five launches beside the total
-  5. K3       chamfer NN argmin vs its twin at M=2048 and M=20000
+  5. K3       chamfer NN argmin vs its twin at M=2048, at M=20000 and at
+              the two-sided chamfer's swapped shape (the pruned cloud's
+              points against the contact vertices); int64 indices, two runs
+              equal; beside the bound, the issue floor of the exact formula
   6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6,
               finite bodies, mean loss falling, peak device memory; then
               bodies/s
@@ -229,28 +233,46 @@ K2_MMA_KERNELS = ("skin_bwd_coef_kernel", "splitk_gemm_kernel")
 SKIN_KERNELS = ("skin_pack_kernel", K1_MMA_KERNEL) + K2_MMA_KERNELS + ("reduce_tiles_kernel",)
 
 
-def hmma_counts(lib_path):
-    """{kernel function: count of tensor-core (HMMA) instructions} in the
-    library's SASS, from the cuobjdump beside nvcc."""
+K3_KERNEL = "nn_argmin_kernel"
+
+
+def sass_counts(lib_path, opcodes=("HMMA", "FFMA")):
+    """{opcode: {kernel function: count of instructions whose line holds the
+    opcode}} in the library's SASS, from the cuobjdump beside nvcc."""
     from psi_tpu_torch.ops import _cuda
 
     cuobjdump = Path(_cuda.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, fn = {}, None
+    counts, fn = {op: {} for op in opcodes}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            for op in opcodes:
+                counts[op][fn] = 0
+        elif fn is not None:
+            for op in opcodes:
+                if op in line:
+                    counts[op][fn] += 1
     return counts
 
 
-def check_skinning_sass(lib_path):
+def check_k3_sass(ffma: dict) -> int:
+    """Phase 2's contraction check: K3's distance must round every product
+    and sum on its own, as its twin does; one FFMA in its SASS would mean
+    the compiler fused some. Raises unless the kernel is there with none."""
+    hits = [n for fn, n in ffma.items() if K3_KERNEL in fn]
+    if not hits:
+        raise AssertionError(f"{K3_KERNEL} is not in the library's SASS")
+    log(f"[build]   {K3_KERNEL}: {sum(hits)} FFMA instructions (must be 0)")
+    if sum(hits):
+        raise AssertionError(f"K3's SASS holds {sum(hits)} fused multiply-adds: its bits would differ from the twin's")
+    return sum(hits)
+
+
+def check_skinning_sass(counts: dict):
     """Phase 2's tensor-core check: HMMA count of each of K1's and K2's
     kernels; raises if a kernel that computes a product has none."""
-    counts = hmma_counts(lib_path)
     found = {}
     for name in SKIN_KERNELS:
         hits = [n for fn, n in counts.items() if name in fn]
@@ -301,21 +323,30 @@ def check_k2(cb, A12, cam12, bundle, k2_bound: dict):
             "stage_ms": alone, "library_ms": None, **k2_bound}
 
 
-def check_k3(x, y_pruned, y_full):
+def check_k3(contact, y_pruned, y_full):
     import torch
 
     from psi_tpu_torch.ops.chamfer import nn_argmin, nn_argmin_reference
+    from psi_tpu_torch.scripts.tune_chamfer_nn import issue_floor_ms, sm_clock_under_load
     from psi_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
 
+    clocks = sm_clock_under_load(lambda: nn_argmin(contact, y_full))  # ~0.7 s of launches
+    mhz, max_mhz = (float(c.strip().split()[0]) for c in clocks.split(","))
+    sms = torch.cuda.get_device_properties(contact.device).multi_processor_count
+    log(f"[K3] SM clock under K3's load {mhz:.0f} MHz (max {max_mhz:.0f} MHz), {sms} SMs")
     out = {}
-    for label, y in (("pruned", y_pruned), ("full", y_full)):
+    # swapped: the second search of the two-sided chamfer (every scene point's nearest contact vertex)
+    for label, x, y in (("pruned", contact, y_pruned), ("full", contact, y_full), ("swapped", y_pruned, contact)):
         ik = nn_argmin(x, y)
+        again = nn_argmin(x, y)
         it = nn_argmin_reference(x, y)
         yk = torch.gather(y, 1, ik[..., None].expand(-1, -1, 3))
         yt = torch.gather(y, 1, it[..., None].expand(-1, -1, 3))
         dk = ((x - yk) ** 2).sum(-1)
         dt = ((x - yt) ** 2).sum(-1)
         torch.cuda.synchronize()
+        if ik.dtype != torch.int64 or not torch.equal(ik, again):
+            raise AssertionError(f"K3 at {label}: indices are {ik.dtype}, two runs equal: {torch.equal(ik, again)}")
         rel = ((dk - dt).abs() / dt.clamp(min=1e-12)).max().item()
         differ = ik != it
         agree = 1.0 - differ.float().mean().item()
@@ -327,19 +358,23 @@ def check_k3(x, y_pruned, y_full):
         # calls, a [B, N, M] matrix through device memory) is the nearest
         cdist_ms = cuda_ms(lambda: torch.cdist(x, y).argmin(dim=-1))
         B, N, M = x.shape[0], x.shape[1], y.shape[1]
-        # x and y read once, idx written; per (x, y) pair 3 subtractions, 3
-        # multiplications, 2 additions and the comparison, in f32
-        k3_bound = bound(4 * (3 * B * N + 3 * B * M + B * N), f32=9 * B * N * M)
+        # x and y read once, int64 idx written; per (x, y) pair 3 subtractions,
+        # 3 multiplications, 2 additions and the comparison, in f32
+        k3_bound = bound(4 * (3 * B * N + 3 * B * M) + 8 * B * N, f32=9 * B * N * M)
+        # the bound's peak assumes every instruction a fused multiply-add; the
+        # twin's formula, which K3 keeps bit for bit, is 8 that cannot fuse
+        floor_ms = issue_floor_ms(B * N * M, sms, max_mhz)
         log(f"[K3] chamfer_nn_argmin B={B} N={N} M={M}: max rel distance err "
             f"{rel:.3e} (tol {K3_REL_TOL}); index agreement {agree:.6f} ({int(differ.sum())} differ, "
-            f"{non_tie} not ties); kernel {ms:.4f} ms a call, {device_ms:.4f} ms on the device, twin "
-            f"{plain_ms:.4f} ms, torch.cdist + argmin "
-            f"{cdist_ms:.4f} ms; bound {k3_bound['bound_ms']:.4f} ms ({k3_bound['bound_by']})")
+            f"{non_tie} not ties); int64 indices, two runs equal; kernel {ms:.4f} ms a call, {device_ms:.4f} ms "
+            f"on the device, twin {plain_ms:.4f} ms, torch.cdist + argmin {cdist_ms:.4f} ms; bound "
+            f"{k3_bound['bound_ms']:.4f} ms ({k3_bound['bound_by']}); issue floor of the exact formula "
+            f"{floor_ms:.4f} ms at {max_mhz:.0f} MHz: the kernel takes {device_ms / floor_ms:.2f}x of it")
         if not rel <= K3_REL_TOL or non_tie:
             raise AssertionError(f"K3 disagrees with its twin at {label}: rel {rel}, {non_tie} non-tie")
         out[label] = {"max_abs_err": (dk - dt).abs().max().item(), "ms": ms, "device_ms": device_ms,
-                      "plain_ms": plain_ms,
-                      "library_ms": None, "cdist_argmin_ms": cdist_ms, **k3_bound}
+                      "plain_ms": plain_ms, "library_ms": None, "cdist_argmin_ms": cdist_ms,
+                      "issue_floor_ms": floor_ms, "sm_mhz": mhz, **k3_bound}
     return out
 
 
@@ -445,7 +480,9 @@ def smoke(dev) -> None:
     for line in build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build]   {line.strip()}")
-    hmma = check_skinning_sass(lib_path)
+    sass = sass_counts(lib_path)
+    hmma = check_skinning_sass(sass["HMMA"])
+    k3_ffma = check_k3_sass(sass["FFMA"])
 
     # ---- inputs at full width, from the seed
     t0 = time.time()
@@ -570,7 +607,8 @@ def smoke(dev) -> None:
                               "peak_gb": peak_gb},
                     "k1": {"stage_ms": k1["stage_ms"]},
                     "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"]}, "hmma": hmma,
-                    "k3_full_cloud": k3["full"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores}))
+                    "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
+                    "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,12 @@
-"""One-sided chamfer nearest-neighbour distance: kernel K3 and its twin.
+"""Chamfer nearest-neighbour distances: kernel K3, its twin and its callers.
 
-Port of the one-sided half of ``psi_tpu.ops.chamfer`` (the fit loss's
-contact term): ``chamfer_one_sided`` (differentiable in both clouds) and
+Port of ``psi_tpu.ops.chamfer``. One-sided (the fit loss's contact term):
+``chamfer_one_sided`` (differentiable in both clouds) and
 ``chamfer_one_sided_nn`` (differentiable in x, returns the frozen winner
-for the selection-refresh carry).
+for the selection-refresh carry). Two-sided (the training loss):
+``chamfer_distance`` (differentiable in both clouds) and
+``chamfer_with_idx`` (distances and winners, no gradient); each is two
+searches with the clouds swapped.
 
 The NN search itself is ``nn_argmin``: x [B, N, 3], y [B, M, 3] -> the
 index of each x point's nearest y point, ties to the lowest index.
@@ -66,14 +69,23 @@ def nn_argmin(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     M = y.shape[1]
     _cuda.check(x, "x", torch.float32, (B, N, 3), x.device)
     _cuda.check(y, "y", torch.float32, (B, M, 3), x.device)
-    idx = torch.empty((B, N), dtype=torch.int32, device=x.device)
+    idx = torch.empty((B, N), dtype=torch.int64, device=x.device)  # the kernel writes int64 itself
     NN_ARGMIN.launch(x.device, x.data_ptr(), y.data_ptr(), idx.data_ptr(), B, N, M, _cuda.stream_of(x))
-    return idx.long()
+    return idx
 
 
 def _gather_points(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """y [B, M, 3], idx [B, N] -> y[b, idx[b, n]] as [B, N, 3]."""
     return torch.gather(y, 1, idx[..., None].expand(-1, -1, 3))
+
+
+def _scatter_rows(rows: torch.Tensor, idx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Sum rows [B, N, 3] into zeros_like(like [B, M, 3]) at idx [B, N]. On
+    the card index_add_ sums with atomics: the order of the sum, and so the
+    last bit, may differ from run to run."""
+    B, M, _ = like.shape
+    flat = (idx + torch.arange(B, device=like.device)[:, None] * M).reshape(-1)
+    return torch.zeros_like(like).reshape(B * M, 3).index_add_(0, flat, rows.reshape(-1, 3)).reshape(B, M, 3)
 
 
 class _ChamferOneSided(torch.autograd.Function):
@@ -94,10 +106,7 @@ class _ChamferOneSided(torch.autograd.Function):
         term = 2.0 * g1[..., None] * diff1
         gy = None
         if ctx.needs_input_grad[1]:
-            B, M, _ = y.shape
-            flat = (i1 + torch.arange(B, device=y.device)[:, None] * M).reshape(-1)
-            gy = torch.zeros_like(y).reshape(B * M, 3).index_add_(0, flat, -term.reshape(-1, 3))
-            gy = gy.reshape(B, M, 3)
+            gy = _scatter_rows(-term, i1, y)
         return term, gy
 
 
@@ -105,6 +114,44 @@ def chamfer_one_sided(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Squared NN distance x -> y: [B, N, 3] x [B, M, 3] -> [B, N],
     differentiable with respect to both clouds."""
     return _ChamferOneSided.apply(x.to(torch.float32), y.to(torch.float32))
+
+
+class _Chamfer(torch.autograd.Function):
+    """(d1, d2) = (|x - y[i1]|^2, |y - x[i2]|^2) with the reference CUDA
+    backward: each direction's gradient flows to its own point and scatters
+    into the winner (psi_tpu ``_chamfer_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        i1, i2 = nn_argmin(x, y), nn_argmin(y, x)
+        d1 = ((x - _gather_points(y, i1)) ** 2).sum(-1)
+        d2 = ((y - _gather_points(x, i2)) ** 2).sum(-1)
+        ctx.save_for_backward(x, y, i1, i2)
+        return d1, d2
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        x, y, i1, i2 = ctx.saved_tensors
+        t1 = 2.0 * g1[..., None] * (x - _gather_points(y, i1))  # [B, N, 3]
+        t2 = 2.0 * g2[..., None] * (y - _gather_points(x, i2))  # [B, M, 3]
+        gx = t1 + _scatter_rows(-t2, i2, x) if ctx.needs_input_grad[0] else None
+        gy = _scatter_rows(-t1, i1, y) + t2 if ctx.needs_input_grad[1] else None
+        return gx, gy
+
+
+def chamfer_distance(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bidirectional squared NN distance, differentiable with respect to both
+    clouds: x [B, N, 3], y [B, M, 3] -> (dist1 [B, N], dist2 [B, M])."""
+    return _Chamfer.apply(x.to(torch.float32), y.to(torch.float32))
+
+
+def chamfer_with_idx(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dist1 [B, N], dist2 [B, M], idx1 [B, N], idx2 [B, M]): like
+    chamfer_distance with the winners' int64 indices, no gradient."""
+    x = x.detach().to(torch.float32)
+    y = y.detach().to(torch.float32)
+    i1, i2 = nn_argmin(x, y), nn_argmin(y, x)
+    return ((x - _gather_points(y, i1)) ** 2).sum(-1), ((y - _gather_points(x, i2)) ** 2).sum(-1), i1, i2
 
 
 def chamfer_one_sided_nn(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

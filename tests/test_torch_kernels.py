@@ -34,8 +34,15 @@ torch.set_num_threads(1)
 SKIN_SHAPES = [(5, 300, 12), (13, 1001, 55), (130, 2051, 55)]
 # K1 also at a shape smaller than one tile on every axis
 K1_SHAPES = SKIN_SHAPES + [(1, 17, 3)]
-# (B, N, M): N ragged against 256 threads, M across and ragged against 1024-point tiles
-NN_SHAPES = [(3, 200, 700), (2, 300, 3000)]
+# K3's tiles: a block covers NN_R * NN_THREADS x points, a shared-memory tile
+# holds NN_TILE y points, one compare a NN_CHUNK of them (csrc/chamfer_nn.cu)
+NN_BLOCK, NN_TILE, NN_CHUNK = 4 * 128, 1024, 16
+# (B, N, M): the CPU parity shape; M across and ragged against the tiles; N = 1
+# and one off a block either way; M = 1, one off a tile and one off a chunk
+# either way; the two-sided chamfer's swapped shape (many x, few y)
+NN_SHAPES = [(3, 200, 700), (2, 300, 3000), (2, 1, 50), (2, NN_BLOCK - 1, 40), (2, NN_BLOCK + 1, 40),
+             (3, 7, 1), (2, 40, NN_TILE - 1), (2, 40, NN_TILE + 1), (2, 40, NN_CHUNK - 1), (2, 40, NN_CHUNK + 1),
+             (2, 3000, 300)]
 
 
 @pytest.fixture
@@ -180,8 +187,13 @@ def _clouds(shape, dev):
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1.0, (B, N, 3)).astype(np.float32)
     y = rng.uniform(-2, 2, (B, M, 3)).astype(np.float32)
-    y[:, -20:] = 1.0e5  # registry-style far padding never wins
+    if M > 20:
+        y[:, -20:] = 1.0e5  # registry-style far padding never wins
     return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def _sq_dist_to(x, y, idx):
+    return ((x - tch._gather_points(y, idx)) ** 2).sum(-1)
 
 
 @pytest.mark.cuda
@@ -193,12 +205,10 @@ def test_k3_kernel_matches_twin(shape, card):
     assert tch.NN_ARGMIN.launches == n + 1
     it = tch.nn_argmin_reference(x, y)
     torch.cuda.synchronize()
-    assert ik.shape == it.shape == shape[:2]
-    dk = ((x - tch._gather_points(y, ik)) ** 2).sum(-1)
-    dt = ((x - tch._gather_points(y, it)) ** 2).sum(-1)
+    assert ik.shape == it.shape == shape[:2] and ik.dtype == torch.int64
     # both evaluate the same f32 distance; winners differ only between
     # points at equal distance
-    assert torch.equal(dk, dt)
+    assert torch.equal(_sq_dist_to(x, y, ik), _sq_dist_to(x, y, it))
 
 
 @pytest.mark.cuda
@@ -206,6 +216,92 @@ def test_k3_kernel_ties_go_to_lowest_index(card):
     y = torch.zeros((1, 3000, 3), device=card)  # 3000 identical points, across tiles
     x = torch.ones((1, 300, 3), device=card)
     assert int(tch.nn_argmin(x, y).max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first,second", [
+    (NN_TILE - 3, NN_TILE + 5),  # the copies lie in two shared-memory tiles
+    (NN_TILE + 2 * NN_CHUNK + 3, NN_TILE + 2 * NN_CHUNK + 9),  # in one unrolled chunk
+    (NN_CHUNK - 1, NN_CHUNK),  # in neighbouring chunks
+    (5, 2 * NN_TILE + 40),  # in the first tile and the last, ragged one
+])
+def test_k3_kernel_duplicate_points_go_to_the_lowest_index(first, second, card):
+    """The nearest y point stands twice in the cloud: the lower copy wins,
+    wherever the two fall against the tiles and the chunks."""
+    x, y = _clouds((2, 70, 2 * NN_TILE + 100), card)
+    y[:, first] = y[:, second] = x[:, 11] + 1e-3  # nearer to x[11] than any other point
+    idx = tch.nn_argmin(x, y)
+    assert idx[:, 11].tolist() == [first, first]
+    assert torch.equal(idx, tch.nn_argmin_reference(x, y))
+
+
+@pytest.mark.cuda
+def test_k3_kernel_folds_many_bodies_into_the_grid(card):
+    """More bodies than a grid's second axis takes (65535): the body is
+    folded into the first."""
+    x, y = _clouds((70000, 3, 5), card)
+    ik = tch.nn_argmin(x, y)
+    assert torch.equal(ik, tch.nn_argmin_reference(x, y))
+
+
+@pytest.mark.cuda
+def test_k3_kernel_is_deterministic_and_writes_only_its_output(card):
+    """Two runs give equal indices, and with the int64 output placed inside
+    a larger buffer of sentinels every word outside [B, N] keeps its sentinel
+    and every word inside is written."""
+    from psi_tpu_torch.ops import _cuda
+
+    B, N, M = 3, NN_BLOCK + 37, 1500
+    x, y = _clouds((B, N, M), card)
+    guard, sentinel = 1031, -7
+    buf = torch.full((B * N + 2 * guard,), sentinel, dtype=torch.int64, device=card)
+    tch.NN_ARGMIN.launch(card, x.data_ptr(), y.data_ptr(), buf[guard:].data_ptr(), B, N, M, _cuda.stream_of(x))
+    out = buf[guard:guard + B * N].view(B, N)
+    assert torch.equal(out, tch.nn_argmin(x, y)) and torch.equal(out, tch.nn_argmin(x, y))
+    assert bool((buf[:guard] == sentinel).all()) and bool((buf[guard + B * N:] == sentinel).all())
+    assert int(out.min()) >= 0 and int(out.max()) < M
+
+
+@pytest.mark.cuda
+def test_k3_kernel_gives_index_0_when_no_distance_is_finite(card):
+    """Every distance +inf (y at inf) or NaN (x at inf too): nothing is below
+    the initial +inf, and the index stays 0, as a `d < best` scan leaves it."""
+    x = torch.zeros((2, 40, 3), device=card)
+    x[1] = float("inf")
+    y = torch.full((2, 50, 3), float("inf"), device=card)
+    assert int(tch.nn_argmin(x, y).abs().max()) == 0
+    y[:, 33] = 0.25  # one finite point: body 0 takes it, body 1 (inf - 0.25 = inf) still has none
+    assert tch.nn_argmin(x, y)[0].unique().tolist() == [33] and int(tch.nn_argmin(x, y)[1].max()) == 0
+
+
+@pytest.mark.cuda
+def test_chamfer_distance_on_card_matches_cpu(card):
+    """The two-sided chamfer on the card (two K3 searches) and on the CPU
+    (the twin): the same winners; the distances, recomputed by each device's
+    own elementwise kernels, agree to 1e-6 (absolute, and relative where a y
+    point gathers many terms); so do the gradients, and not to the bit,
+    because index_add_ sums with atomics on the card, in an order that may
+    change from run to run."""
+    x, y = _clouds((2, 3000, 300), card)
+    y = y[:, :-20].contiguous()  # every y point is a query too: keep the clouds near each other
+    rng = np.random.default_rng(1)
+    w1 = torch.from_numpy(rng.normal(size=(2, 3000)).astype(np.float32))
+    w2 = torch.from_numpy(rng.normal(size=(2, 280)).astype(np.float32))
+    res = []
+    for dev in (card, torch.device("cpu")):
+        xd = x.detach().to(dev).requires_grad_(True)
+        yd = y.detach().to(dev).requires_grad_(True)
+        n = tch.NN_ARGMIN.launches
+        d1, d2 = tch.chamfer_distance(xd, yd)
+        assert tch.NN_ARGMIN.launches == n + (2 if dev.type == "cuda" else 0)
+        ((d1 * w1.to(dev)).sum() + (d2 * w2.to(dev)).sum()).backward()
+        res.append((d1.detach().cpu(), d2.detach().cpu(), xd.grad.cpu(), yd.grad.cpu()))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    i_card = tch.chamfer_with_idx(x, y)[2:]
+    i_cpu = tch.chamfer_with_idx(x.cpu(), y.cpu())[2:]
+    assert all(a.dtype == torch.int64 and torch.equal(_sq_dist_to(*c, a), _sq_dist_to(*c, b.to(card)))
+               for a, b, c in zip(i_card, i_cpu, ((x, y), (y, x))))
 
 
 @pytest.mark.cuda
