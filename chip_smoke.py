@@ -44,6 +44,32 @@ and then the probe path, the SDF variants and the eval scorers:
               and on the CPU (collision_contact_scores, diversity_metrics
               k=20): the scores agree within stated bounds
 
+and then the training path and the Stage-2 sampler:
+
+ 11. train    for 's1' and then 's2': TrainOP on the card at TrainConfig()
+              and LossConfig() defaults (batch 32, 128 x 128 snapshots,
+              latentD 256, Adam at 3e-4, the unpruned 20k cloud) on a
+              SyntheticBatchGenerator. The gates are open from the first
+              step because the run resumes a checkpoint of the initial
+              state written as epoch 7 of 9 (epochs 8 and 9 are past
+              0.75 * 9, so f_scene = 1 and fca = 1). Raises unless every
+              metric of every step is finite, contact is nonzero in every
+              step and collision in at least one, K3 was launched exactly
+              once per step at M = 20000, BatchNorm's running statistics
+              moved, a run resumed from the checkpoint written after step 3
+              repeats step 4's metrics, and on one batch repeated for 10
+              steps the loss falls from its value after Adam's first update
+              (which raises it: see TRAIN_REPEAT's check). Then one
+              step at batch 4 on the card against the CPU (K3's twin), same
+              weights, batch and injected noise: metrics and every
+              parameter's gradient (median at rounding level; the largest
+              bounded by what one unit at a kink can do). Times: ms per
+              step (median of the steps after the first), peak memory of a
+              step, and K3 at (32, 1455, 20000): on the device, beside its
+              bound, its twin (equal indices) and torch.cdist + argmin.
+ 12. s2       one N=256 production generate+fit with HumanCVAES2 as the
+              sampler: launch counts 20/20/6, finite bodies, falling loss
+
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
 result. The last three lines are the per-kernel JSON, the nvidia-smi
@@ -60,10 +86,13 @@ host taken out (20 calls replayed from a CUDA graph, over 20).
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -113,6 +142,31 @@ EVAL_CONTACT_TOL = 1.0 / N_BODIES
 #     near-tie assignment. One point changing cluster moves the entropy
 #     by at most ~2 log(N) / N = 0.043 at N=256: allow two such flips.
 EVAL_ENTROPY_TOL = 0.1
+# train, resumed run: step 4 starts from step 3's checkpoint, the very
+#     parameters, moments and noise stream the uninterrupted run had there,
+#     and a forward pass sums nothing with atomics; what is left is cuDNN
+#     choosing another algorithm in the other process state.
+TRAIN_RESUME_REL_TOL = 1e-5
+# train, card vs CPU at batch 4, one step: the same math in f32, sums in
+#     another order (the fit's iteration-0 bound) ...
+TRAIN_METRIC_REL_TOL = 1e-4
+#     ... and for each parameter e = max |card - CPU| over the largest |CPU
+#     gradient| of that parameter. On the card the backward of torch.gather,
+#     index_add_ and cuDNN's convolutions sums with atomics, so two runs of
+#     a step on the card differ in the last bits too: a tolerance, not
+#     equal bits. Over the parameters the median e is held to rounding level.
+#     The largest e is not: the forward agrees to ~3e-6, so a ReLU, LeakyReLU
+#     or max-pool unit whose input lies that close to 0 (or to a tie) takes
+#     the other branch on the card, and one unit is one of the 4 x 16 x 16
+#     terms of a channel's weight gradient: ~1/32 of that sum's size, for
+#     every parameter upstream of it (measured: one unit at the output of
+#     S2's local trunk at batch 4, e = 3.4e-2 there and under 2e-2 upstream,
+#     1e-6 everywhere with each module's backward checked alone in f64).
+TRAIN_GRAD_MEDIAN_TOL = 1e-5
+TRAIN_GRAD_MAX_TOL = 5e-2
+TRAIN_STEPS = 6  # steps of the TrainOP run, in two epochs; the checkpoint between them is resumed
+TRAIN_REPEAT = 10  # steps on one repeated batch
+TRAIN_CROSS_BATCH = 4
 
 
 # Published peaks of one NVIDIA H100 SXM at its full 700 W (NVIDIA's data
@@ -431,6 +485,230 @@ def check_eval(assets, assets_cpu, x72, cam_ext, scene_idx):
             "cpu": {"non_collision": nc_c, "contact": ct_c, "entropy": ent_c, "mean_dist": md_c}}
 
 
+class RepeatedBatch:
+    """The data layer's protocol over ONE batch, handed out ``n`` times an epoch."""
+
+    def __init__(self, batch, n: int):
+        self.batch, self.n, self.count = batch, n, 0
+
+    def reset(self):
+        self.count = 0
+
+    def has_next_batch(self) -> bool:
+        return self.count < self.n
+
+    def next_batch(self, batch_size: int):
+        self.count += 1
+        return self.batch
+
+
+def open_gates_config(model_type: str, save_dir: str, dev, saving_per_epochs: int = 100):
+    """TrainConfig() defaults with 9 epochs, and in ``save_dir`` a checkpoint
+    of the initial state marked epoch 7: a resuming TrainOP trains epochs 8
+    and 9, both past 0.75 * 9 = 6.75, so f_scene = 1 and fca = 1 in every
+    step. No knob is added: the gates are where TrainOP puts them."""
+    from psi_tpu_torch.train.checkpoint import save_checkpoint
+    from psi_tpu_torch.train.loop import init_state
+    from psi_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig(model_type=model_type, epoch=9, save_dir=save_dir, saving_per_epochs=saving_per_epochs,
+                      verbose=False, seed=SEED)
+    save_checkpoint(save_dir, 7, init_state(cfg, dev))
+    return cfg
+
+
+def read_metrics(save_dir: str):
+    with open(Path(save_dir) / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Path):
+    """Phase 11 for one model type; returns its record."""
+    import math
+
+    import torch
+
+    from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator
+    from psi_tpu_torch.ops.chamfer import NN_ARGMIN
+    from psi_tpu_torch.train.loop import TrainOP, _stage_chunk, init_state, make_train_step
+    from psi_tpu_torch.utils.config import LossConfig, TrainConfig
+
+    tag = f"[train {model_type}]"
+    loss_cfg = LossConfig()
+    M = assets.scene_verts.shape[1]
+    if loss_cfg.prune_scene_points != 0 or M != ASSET_KW["scene_points"]:
+        raise AssertionError("the training phase must search the whole 20k cloud")
+
+    def batches(n):
+        return SyntheticBatchGenerator(num_scenes=ASSET_KW["num_scenes"], batches_per_epoch=n, seed=SEED + 20,
+                                       image_size=MODEL_KW["image_size"])
+
+    # ---- TrainOP: two epochs of TRAIN_STEPS / 2 steps, a checkpoint between them
+    half = TRAIN_STEPS // 2
+    run_dir = str(workdir / f"{model_type}_run")
+    cfg = open_gates_config(model_type, run_dir, dev, saving_per_epochs=8)
+    op = TrainOP(cfg, loss_cfg, assets)  # no device given: the card
+    if next(op.model.parameters()).device != dev:
+        raise AssertionError("TrainOP did not put its model on the card")
+    stats0 = {k: v.clone() for k, v in op.model.state_dict().items() if "running_" in k}
+    step_ms = []
+    inner = op.epoch_fn
+
+    def timed(*args):  # one step per call here (scan_epoch is off)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        return out
+
+    op.epoch_fn = timed
+    torch.cuda.synchronize()
+    NN_ARGMIN.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    last = op.train(batches(half))
+    torch.cuda.synchronize()
+    k3_launches = NN_ARGMIN.launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    rows = read_metrics(run_dir)
+    names = {"loss", "rec_t", "rec_p", "vposer", "contact", "collision", "kl"} | (
+        {"kl_g", "kl_l"} if model_type == "s2" else set())
+    if len(rows) != TRAIN_STEPS or op.state.step != TRAIN_STEPS or set(rows[0]) != names | {"epoch"}:
+        raise AssertionError(f"{tag} expected {TRAIN_STEPS} logged steps with metrics {sorted(names)}")
+    if not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"{tag} a metric is not finite: {rows}")
+    if {k: v for k, v in rows[-1].items() if k != "epoch"} != last:
+        raise AssertionError(f"{tag} train() did not return the last step's metrics")
+    n_collision = sum(r["collision"] > 0 for r in rows)
+    if not (all(r["contact"] > 0 and r["kl"] > 0 for r in rows) and n_collision > 0):
+        raise AssertionError(f"{tag} a gated term is zero: {rows}")
+    if k3_launches != TRAIN_STEPS:
+        raise AssertionError(f"{tag} K3 launched {k3_launches} times in {TRAIN_STEPS} steps")
+    moved = [k for k, v in op.model.state_dict().items() if k in stats0 and not torch.equal(v, stats0[k])]
+    if len(moved) != len(stats0):
+        raise AssertionError(f"{tag} {len(stats0) - len(moved)} running statistics did not move")
+    median_ms = statistics.median(step_ms[1:])
+    log(f"{tag} TrainOP on the card, batch {cfg.batch_size}, gates open (epochs 8 and 9 of 9): {TRAIN_STEPS} steps, every "
+        f"metric finite; loss {rows[0]['loss']:.6f} -> {rows[-1]['loss']:.6f}; contact > 0 in all, collision > 0 in "
+        f"{n_collision}; K3 launches {k3_launches} at M={M} (one per step); {len(moved)} running statistics moved; "
+        f"first step {step_ms[0]:.1f} ms, then {', '.join(f'{t:.2f}' for t in step_ms[1:])} ms: median "
+        f"{median_ms:.3f} ms a step ({1e3 / median_ms:.2f} steps/s); peak device memory {peak_gb:.4f} GB; on {smi}")
+
+    # ---- resume from the checkpoint written after step 3 (the end of epoch 8)
+    k = half
+    resume_dir = workdir / f"{model_type}_resume"
+    resume_dir.mkdir()
+    shutil.copy(Path(run_dir) / "epoch-000008.ckp", resume_dir)
+    op_r = TrainOP(dataclasses.replace(cfg, save_dir=str(resume_dir)), loss_cfg, assets)
+    later = batches(half)
+    for _ in range(half):  # the generator's draws of epoch 8, which the first run consumed
+        later.next_batch(cfg.batch_size)
+    later.reset()
+    op_r.train(later)
+    rows_r = read_metrics(str(resume_dir))
+    if len(rows_r) != TRAIN_STEPS - k or op_r.state.step != TRAIN_STEPS:
+        raise AssertionError(f"{tag} the resumed run took {len(rows_r)} steps to step {op_r.state.step}")
+
+    def rel(a, b):
+        return max(abs(a[n] - b[n]) / max(abs(b[n]), 1e-12) for n in names)
+
+    resume_rel = rel(rows_r[0], rows[k])
+    later_rel = max(rel(a, b) for a, b in zip(rows_r[1:], rows[k + 1:]))
+    log(f"{tag} resumed from the checkpoint after step {k}: step {k + 1}'s metrics differ from the uninterrupted "
+        f"run's by {resume_rel:.3e} relative at most (tol {TRAIN_RESUME_REL_TOL}); steps {k + 2}-{TRAIN_STEPS} by "
+        f"{later_rel:.3e} (not held: the backward's atomics reach them through Adam)")
+    if not resume_rel <= TRAIN_RESUME_REL_TOL:
+        raise AssertionError(f"{tag} the resumed step disagrees: {rows_r[0]} vs {rows[k]}")
+
+    # ---- one batch repeated: the loss falls
+    rep_dir = str(workdir / f"{model_type}_repeat")
+    op_f = TrainOP(open_gates_config(model_type, rep_dir, dev), loss_cfg, assets)
+    op_f.train(RepeatedBatch(batches(1).next_batch(cfg.batch_size), TRAIN_REPEAT // 2))  # two epochs of it
+    losses = [r["loss"] for r in read_metrics(rep_dir)]
+    # Adam's first update moves every weight by lr in its gradient's sign, all
+    # 8192 input weights of fc among them, and at lr 3e-4 that overshoots: the
+    # loss after it is the largest of the run. From there it must fall.
+    log(f"{tag} one batch repeated {TRAIN_REPEAT} times: loss " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; before any update {losses[0]:.4f}, after Adam's first {losses[1]:.4f}, last {losses[-1]:.4f}")
+    if not (len(losses) == TRAIN_REPEAT and losses[-1] < losses[1]
+            and statistics.mean(losses[-3:]) < statistics.mean(losses[1:4])):
+        raise AssertionError(f"{tag} the loss on a repeated batch does not fall: {losses}")
+
+    # ---- one step at batch 4, card against CPU (K3's twin there)
+    small = TrainConfig(model_type=model_type, seed=SEED, batch_size=TRAIN_CROSS_BATCH)
+    host = batches(1).next_batch(TRAIN_CROSS_BATCH)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    eps = torch.randn((TRAIN_CROSS_BATCH, 32), generator=gen)
+    eps = eps if model_type == "s1" else (eps, torch.randn((TRAIN_CROSS_BATCH, 32), generator=gen))
+    sides = {}
+    for name, d, a in (("cpu", torch.device("cpu"), assets_cpu), ("cuda", dev, assets)):
+        state = init_state(small, d)
+        batch = {key: v[0] for key, v in _stage_chunk([host], False, d).items()}
+        e = eps.to(d) if model_type == "s1" else tuple(x.to(d) for x in eps)
+        before = NN_ARGMIN.launches
+        state, metrics = make_train_step(a, loss_cfg, model_type)(state, batch, 1.0, 1.0, eps=e)
+        if NN_ARGMIN.launches - before != (1 if d.type == "cuda" else 0):  # the CPU takes the twin
+            raise AssertionError(f"{tag} K3 launches on {name}: {NN_ARGMIN.launches - before}")
+        sides[name] = ({key: float(v) for key, v in metrics.items()},
+                       {key: p.grad.detach().cpu() for key, p in state.model.named_parameters()})
+    metric_rel = rel(sides["cuda"][0], sides["cpu"][0])
+    grad_rel = {key: ((sides["cuda"][1][key] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                for key, g in sides["cpu"][1].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    grad_median = statistics.median(grad_rel.values())
+    n_over = sum(v > 1e-3 for v in grad_rel.values())
+    log(f"{tag} one step at batch {TRAIN_CROSS_BATCH}, card vs CPU (same weights, batch and noise): metrics differ by "
+        f"{metric_rel:.3e} relative at most (tol {TRAIN_METRIC_REL_TOL}); max |card - CPU| / max |CPU| of a gradient, "
+        f"over {len(grad_rel)} parameters: median {grad_median:.3e} (tol {TRAIN_GRAD_MEDIAN_TOL}), largest "
+        f"{grad_rel[worst]:.3e} at {worst} (tol {TRAIN_GRAD_MAX_TOL}: a unit at a kink takes the other branch), "
+        f"{n_over} over 1e-3")
+    if not (metric_rel <= TRAIN_METRIC_REL_TOL and grad_median <= TRAIN_GRAD_MEDIAN_TOL
+            and grad_rel[worst] <= TRAIN_GRAD_MAX_TOL):
+        raise AssertionError(f"{tag} card and CPU disagree: metrics {metric_rel}, gradients median {grad_median}, "
+                             f"largest {grad_rel[worst]} at {worst}")
+    return {"step_ms": step_ms, "median_step_ms": median_ms, "peak_gb": peak_gb, "k3_launches": k3_launches,
+            "steps": TRAIN_STEPS, "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+            "collision_steps": n_collision, "resume_rel": resume_rel, "resume_later_rel": later_rel,
+            "repeat_losses": losses, "cross_metric_rel": metric_rel, "cross_grad_rel": grad_rel[worst],
+            "cross_grad_median": grad_median, "cross_grad_over_1e-3": n_over, "cross_grad_worst": worst}
+
+
+def check_s2_slice(dev, assets, xs, cam_int, max_d, scene_idx, kernels, want):
+    """Phase 12: the production generate+fit with the Stage-2 sampler, its
+    population placed in the scene's floor as phase 6 places S1's."""
+    import torch
+
+    from psi_tpu_torch.fit.fitting import make_generate_fit_step
+    from psi_tpu_torch.gen.sample import generate_bodies
+    from psi_tpu_torch.scripts.profile_fit import floor_placement
+    from psi_tpu_torch.models.cvae_s2 import HumanCVAES2
+    from psi_tpu_torch.utils.config import FitConfig
+    from psi_tpu_torch.utils.init import seeded_init_
+
+    model = seeded_init_(HumanCVAES2(latentD_g=MODEL_KW["latentD"], latentD_l=MODEL_KW["latentD"],
+                                     image_size=MODEL_KW["image_size"]), SEED).eval().to(dev)
+    run = make_generate_fit_step(model, assets, FitConfig.production(num_iter=NUM_ITER), N_BODIES, want_metrics=False)
+    x72_pre = generate_bodies(model, xs, cam_int, max_d, N_BODIES,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    cam_ext = floor_placement(x72_pre, assets.grid_mins[0], assets.grid_maxs[0])
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.time()
+    x72, _, hist = run(xs, cam_int, max_d, cam_ext, scene_idx, generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k.name: k.launches for k in kernels}
+    loss0, loss_last = hist[0].mean().item(), hist[-1].mean().item()
+    log(f"[s2] generate+fit N={N_BODIES} with HumanCVAES2 in {wall:.2f} s: launches {launches} (want {want}); mean loss "
+        f"iter 0 {loss0:.6f} -> iter {NUM_ITER - 1} {loss_last:.6f}")
+    if launches != want:
+        raise AssertionError(f"[s2] launch counts {launches} != {want}")
+    if x72.shape != (N_BODIES, 72) or not torch.isfinite(x72).all() or not loss_last < loss0:
+        raise AssertionError(f"[s2] fitted bodies not finite [N, 72] or loss not falling: {loss0} -> {loss_last}")
+    return {"wall_s": wall, "launches": launches, "loss_first": loss0, "loss_last": loss_last}
+
+
 def main() -> None:
     import torch
 
@@ -446,7 +724,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-10 on card ``dev``; raises on the first failure."""
+    """Phases 1-12 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -595,6 +873,33 @@ def smoke(dev) -> None:
     # ---- 10. the eval scorers on the fitted population, card vs CPU
     scores = check_eval(assets, assets_cpu, x72, cam_ext, scene_idx)
 
+    # ---- 11. the training path, s1 then s2, through TrainOP
+    from psi_tpu_torch.ops.chamfer import nn_argmin, nn_argmin_reference
+    from psi_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
+
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        train = {mt: check_train(mt, dev, assets, assets_cpu, smi, workdir) for mt in ("s1", "s2")}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    x32, y32 = contact[:32].contiguous(), y_full[:32].contiguous()
+    Bt, Nt, Mt = x32.shape[0], x32.shape[1], y32.shape[1]
+    if not torch.equal(nn_argmin(x32, y32), nn_argmin_reference(x32, y32)):
+        raise AssertionError("K3 disagrees with its twin at the training step's shape")
+    k3_train = {"device_ms": cuda_device_ms(lambda: nn_argmin(x32, y32)),
+                "plain_ms": cuda_ms(lambda: nn_argmin_reference(x32, y32)),
+                "cdist_argmin_ms": cuda_ms(lambda: torch.cdist(x32, y32).argmin(dim=-1)),
+                **bound(4 * (3 * Bt * Nt + 3 * Bt * Mt) + 8 * Bt * Nt, f32=9 * Bt * Nt * Mt)}
+    k3_train_ms = k3_train["device_ms"]
+    log(f"[train] K3 at the training step's shape ({Bt}, {Nt}, {Mt}): indices equal the twin's; {k3_train_ms:.4f} ms "
+        f"on the device (bound {k3_train['bound_ms']:.4f} ms, {k3_train['bound_by']}; twin {k3_train['plain_ms']:.4f} ms; "
+        f"torch.cdist + argmin {k3_train['cdist_argmin_ms']:.4f} ms), "
+        f"{100 * k3_train_ms / train['s1']['median_step_ms']:.1f}% of the s1 step and "
+        f"{100 * k3_train_ms / train['s2']['median_step_ms']:.1f}% of the s2 step; on {smi}")
+
+    # ---- 12. the Stage-2 sampler in front of the production fit
+    s2 = check_s2_slice(dev, assets, xs, cam_int, max_d, scene_idx, kernels, want)
+
     # ---- the record: each kernel with the launch count of its path's run
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
@@ -603,12 +908,16 @@ def smoke(dev) -> None:
              "ms": res["ms"], "device_ms": res["device_ms"], "plain_ms": res["plain_ms"],
              "bound_ms": res["bound_ms"],
              "bound_by": res["bound_by"], "library_ms": res["library_ms"]} for k, res, counts in results]
+    # K3 is on four paths: each was driven with the counts set to 0 just before
+    rows[2]["launches_by_path"] = {"generate_fit_s1": launches[NN_ARGMIN.name], "train_s1": train["s1"]["k3_launches"],
+                                   "train_s2": train["s2"]["k3_launches"], "generate_fit_s2": s2["launches"][NN_ARGMIN.name]}
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb},
                     "k1": {"stage_ms": k1["stage_ms"]},
                     "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"]}, "hmma": hmma,
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
-                    "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores}))
+                    "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
+                    "train": train, "k3_train_shape": k3_train, "s2_slice": s2}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -34,9 +34,8 @@ import torch
 
 from psi_tpu_torch.body.decode import body_vec_to_verts
 from psi_tpu_torch.body.smplx_model import make_fused_bundle
-from psi_tpu_torch.gen.sample import generate_bodies
+from psi_tpu_torch.gen.sample import Model, generate_bodies
 from psi_tpu_torch.geometry.bodyvec import convert_to_3D_rot, convert_to_6D_rot
-from psi_tpu_torch.models.cvae_s1 import HumanCVAES1
 from psi_tpu_torch.ops.chamfer import chamfer_one_sided, chamfer_one_sided_nn
 from psi_tpu_torch.ops.prune import select_near_tiles
 from psi_tpu_torch.ops.sdf import (
@@ -250,14 +249,15 @@ def make_fit_step(assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True
 
 
 def make_generate_fit_step(
-    model: HumanCVAES1, assets: SceneAssets, cfg: FitConfig, n_samples: int, want_metrics: bool = True
+    model: Model, assets: SceneAssets, cfg: FitConfig, n_samples: int, want_metrics: bool = True
 ) -> Callable:
     """Sample a population for ONE snapshot and refine it.
 
     Returns run(xs [1, H, W, 2], cam_int [1, 3, 3], max_d [1], cam_ext
     [N, 4, 4], scene_idx [N], generator=None, eps=None) -> (x72 [N, 72],
-    metrics, hist). eps [N, eps_d] injects the latents in place of a draw
-    from ``generator``."""
+    metrics, hist). ``model`` is a HumanCVAES1 or a HumanCVAES2; eps
+    injects the latents in place of a draw from ``generator`` (a tensor
+    [N, eps_d] for S1, a pair of [N, 32] tensors for S2)."""
     fit = _fit_program(cfg, want_metrics=want_metrics)
 
     def run(xs, cam_int, max_d, cam_ext, scene_idx, generator=None, eps=None):

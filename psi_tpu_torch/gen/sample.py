@@ -1,36 +1,111 @@
-"""Generation: sample a body population for one scene snapshot.
+"""Generation: sample body populations for scene snapshots.
 
-Port of ``psi_tpu.gen.sample.generate_bodies``: encode the snapshot once,
-broadcast the feature over the population, sample the CVAE prior, convert
-6D -> axis-angle and recover the metric global translation.
+Port of ``psi_tpu.gen.sample``'s sampling functions: encode the snapshot
+once, broadcast the feature over the population, sample the CVAE prior
+(``HumanCVAES1``, or ``HumanCVAES2``'s chained global and local priors),
+convert 6D -> axis-angle and recover the metric global translation.
+``generate_bodies`` serves one snapshot, ``generate_bodies_rows`` a
+coalesced batch of snapshots with one body per population row, and
+``generate_bodies_line`` a latent line sweep. All three run the model in
+eval mode (running BatchNorm statistics) whatever mode it was left in, and
+restore that mode.
+
+Latents come from ``generator`` (on the model's device) unless ``eps`` is
+given: a tensor [N, eps_d] for ``HumanCVAES1``, a pair (eps_g, eps_l) of
+[N, 32] tensors for ``HumanCVAES2``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Tuple, Union
 
 import torch
 
 from psi_tpu_torch.geometry.bodyvec import convert_to_3D_rot
 from psi_tpu_torch.geometry.camera import recover_global_T
 from psi_tpu_torch.models.cvae_s1 import HumanCVAES1
+from psi_tpu_torch.models.cvae_s2 import HumanCVAES2
+
+Model = Union[HumanCVAES1, HumanCVAES2]
+Eps = Union[None, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
-@torch.no_grad()
+@contextlib.contextmanager
+def eval_mode(model: torch.nn.Module):
+    """Run a block with ``model`` in eval mode and gradients off, then put
+    it back in the mode it was in."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        model.train(was_training)
+
+
+def _noise(model: Model, generator: Optional[torch.Generator], eps: Eps) -> dict:
+    """The models' noise keywords from the callers' (generator, eps)."""
+    if isinstance(model, HumanCVAES2):
+        eps_g, eps_l = eps if eps is not None else (None, None)
+        return dict(generator=generator, eps_g=eps_g, eps_l=eps_l)
+    return dict(generator=generator, eps=eps)
+
+
 def generate_bodies(
-    model: HumanCVAES1,
+    model: Model,
     xs: torch.Tensor,  # [1, H, W, 2] snapshot
     cam_int: torch.Tensor,  # [1, 3, 3]
     max_d: torch.Tensor,  # [1]
     n_samples: int,
     generator: Optional[torch.Generator] = None,
-    eps: Optional[torch.Tensor] = None,  # [n_samples, eps_d], replaces the draw
+    eps: Eps = None,
 ) -> torch.Tensor:
-    """[n_samples, 72] metric body vectors. The latents come from
-    ``generator`` (a generator on the model's device) unless ``eps`` is
-    given."""
-    xhnr = model.sample_n(xs, n_samples, generator=generator, eps=eps)
-    xhn = convert_to_3D_rot(xhnr)
-    cam_int_n = cam_int.reshape(1, 3, 3).expand(n_samples, 3, 3)
-    max_d_n = max_d.reshape(1).expand(n_samples)
-    return recover_global_T(xhn, cam_int_n, max_d_n)
+    """[n_samples, 72] metric body vectors for one snapshot. The scene
+    trunk (each of S2's two) runs once, not n_samples times."""
+    with eval_mode(model):
+        xhnr = model.sample_n(xs, n_samples, **_noise(model, generator, eps))
+        xhn = convert_to_3D_rot(xhnr)
+        cam_int_n = cam_int.reshape(1, 3, 3).expand(n_samples, 3, 3)
+        max_d_n = max_d.reshape(1).expand(n_samples)
+        return recover_global_T(xhn, cam_int_n, max_d_n)
+
+
+def generate_bodies_rows(
+    model: Model,
+    xs_stack: torch.Tensor,  # [R, H, W, 2] the distinct snapshots
+    cam_int_stack: torch.Tensor,  # [R, 3, 3]
+    max_d_stack: torch.Tensor,  # [R]
+    req_idx: torch.Tensor,  # [P] int: the snapshot of each population row
+    generator: Optional[torch.Generator] = None,
+    eps: Eps = None,
+) -> torch.Tensor:
+    """[P, 72]: one body per population row, row r conditioned on snapshot
+    xs_stack[req_idx[r]]. The trunk encodes the R snapshots once and the
+    features are gathered per row."""
+    req_idx = req_idx.to(torch.int64)
+    noise = _noise(model, generator, eps)
+    with eval_mode(model):
+        if isinstance(model, HumanCVAES2):
+            z_g, z_l = model.encode_scenes(xs_stack)
+            xhnr = model.sample_with_feats(z_g[req_idx], z_l[req_idx], **noise)
+        else:
+            xhnr = model.sample_with_feat(model.encode_scene(xs_stack)[req_idx], **noise)
+        xhn = convert_to_3D_rot(xhnr)
+        return recover_global_T(xhn, cam_int_stack[req_idx], max_d_stack.reshape(-1)[req_idx])
+
+
+def generate_bodies_line(
+    model: HumanCVAES1,
+    xs: torch.Tensor,
+    cam_int: torch.Tensor,
+    max_d: torch.Tensor,
+    n_samples: int,
+    z_range: float = 3.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Latent line sweep for interpolation studies: eps_i is a constant
+    vector sweeping [-z_range, z_range) (reference cvae.py:516-534).
+    Returns (x72 [N, 72], eps [N, eps_d])."""
+    vals = torch.arange(-z_range, z_range, 2.0 * z_range / n_samples, dtype=torch.float32, device=xs.device)
+    eps = vals[:n_samples, None].expand(n_samples, model.eps_d).contiguous()
+    return generate_bodies(model, xs, cam_int, max_d, n_samples, eps=eps), eps

@@ -23,6 +23,25 @@ from psi_tpu_torch.nn.layers import ResBlock
 from psi_tpu_torch.utils.precision import strict_f32
 
 
+def reparam(mu: torch.Tensor, logvar: torch.Tensor, generator: Optional[torch.Generator] = None,
+            eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mu + eps * exp(logvar / 2) with eps given or drawn from ``generator``
+    (a generator on mu's device); mu itself with neither."""
+    if eps is None:
+        if generator is None:
+            return mu
+        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+    return mu + eps * torch.exp(0.5 * logvar)
+
+
+def prior_draw(n: int, d: int, like: torch.Tensor, generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """eps [n, d] when given, else standard normal draws on ``like``'s device."""
+    if eps is not None:
+        return eps
+    return torch.randn((n, d), generator=generator, device=like.device, dtype=like.dtype)
+
+
 class HumanCVAES1(SceneEncoder):
     def __init__(
         self,
@@ -51,21 +70,19 @@ class HumanCVAES1(SceneEncoder):
             return self.linear_out(z)
 
     def forward(
-        self, x_body: torch.Tensor, x_s: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, x_body: torch.Tensor, x_s: torch.Tensor, generator: Optional[torch.Generator] = None,
+        eps: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Training-form forward: (x_rec, mu, logvar); generator=None
-        decodes the posterior mean."""
+        """Training-form forward: (x_rec, mu, logvar). The latent noise is
+        eps [B, eps_d] when given, else a draw from ``generator``; with
+        neither, the posterior mean is decoded."""
         z_s = self.encode_scene(x_s)
         with strict_f32():
             z = torch.cat([self.linear_in(x_body), z_s], dim=1)
             for rb in self.human_encoder:
                 z = rb(z)
             mu, logvar = self.mu_enc(z), self.logvar_enc(z)
-        z_lat = mu
-        if generator is not None:
-            eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
-            z_lat = mu + eps * torch.exp(0.5 * logvar)
-        return self._decode(z_lat, z_s), mu, logvar
+        return self._decode(reparam(mu, logvar, generator, eps), z_s), mu, logvar
 
     def sample_with_eps(self, x_s: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         """Decode given latents eps [B, eps_d] against snapshots x_s [B, H, W, C]."""
@@ -77,6 +94,11 @@ class HumanCVAES1(SceneEncoder):
         once and its feature is broadcast over the population. eps [n,
         eps_d] replaces the draw from ``generator`` when given."""
         z_s = self.encode_scene(x_s).expand(n, -1)
-        if eps is None:
-            eps = torch.randn((n, self.eps_d), generator=generator, device=z_s.device, dtype=z_s.dtype)
-        return self._decode(eps, z_s)
+        return self._decode(prior_draw(n, self.eps_d, z_s, generator, eps), z_s)
+
+    def sample_with_feat(self, z_s: torch.Tensor, generator: Optional[torch.Generator] = None,
+                         eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Prior draws from precomputed scene features z_s [n, latentD]: a
+        coalesced caller encodes each distinct snapshot once and gathers
+        the features per population row."""
+        return self._decode(prior_draw(z_s.shape[0], self.eps_d, z_s, generator, eps), z_s)

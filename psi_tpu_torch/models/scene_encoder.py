@@ -29,8 +29,9 @@ class SceneEncoder(nn.Module):
         self.fc = nn.Linear(f_dim * spatial * spatial, num_hidden)
 
     def encode_scene(self, x_s: torch.Tensor) -> torch.Tensor:
-        """x_s [B, H, W, C] (NHWC) -> [B, num_hidden]. Eval-mode BatchNorm;
-        convolutions in full f32 (no TF32)."""
+        """x_s [B, H, W, C] (NHWC) -> [B, num_hidden]. BatchNorm follows the
+        module's mode (``train()`` / ``eval()``); convolutions in full f32
+        (no TF32)."""
         with strict_f32():
             feat = self.conv(self.resnet(x_s.permute(0, 3, 1, 2)))
             return self.fc(feat.flatten(1))

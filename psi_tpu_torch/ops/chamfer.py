@@ -1,9 +1,11 @@
 """Chamfer nearest-neighbour distances: kernel K3, its twin and its callers.
 
-Port of ``psi_tpu.ops.chamfer``. One-sided (the fit loss's contact term):
+Port of ``psi_tpu.ops.chamfer``. One-sided (the contact term of the
+training loss and of the fit loss, body -> scene only):
 ``chamfer_one_sided`` (differentiable in both clouds) and
 ``chamfer_one_sided_nn`` (differentiable in x, returns the frozen winner
-for the selection-refresh carry). Two-sided (the training loss):
+for the selection-refresh carry). Two-sided (the reference's full chamfer
+distance; neither loss uses the scene -> body direction):
 ``chamfer_distance`` (differentiable in both clouds) and
 ``chamfer_with_idx`` (distances and winners, no gradient); each is two
 searches with the clouds swapped.

@@ -1,1 +1,1 @@
-"""The scene-asset bundle shared by fitting (training is not ported yet)."""
+"""Training: the objective, the step, TrainOP and its checkpoints (port of psi_tpu.train)."""

@@ -30,7 +30,7 @@ def test_port_modules_load_without_jax():
     modules = [m.name for m in pkgutil.walk_packages([str(PKG)], prefix="psi_tpu_torch.")]
     code = (
         "import sys, importlib\n"
-        "import psi_tpu_torch.fit.fitting, psi_tpu_torch.gen.sample\n"
+        "import psi_tpu_torch.fit.fitting, psi_tpu_torch.gen.sample, psi_tpu_torch.train.loop\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu'))\n"
         "print('BAD', bad)\n"
@@ -50,6 +50,7 @@ def test_scripts_and_eval_load_without_jax():
         "import psi_tpu_torch.scripts.profile_gather, psi_tpu_torch.scripts.profile_sdf\n"
         "import psi_tpu_torch.scripts.profile_fit, psi_tpu_torch.scripts.tune_skin_fwd\n"
         "import psi_tpu_torch.scripts.tune_gather_probes, psi_tpu_torch.scripts.tune_chamfer_nn\n"
+        "import psi_tpu_torch.scripts.profile_train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -59,7 +60,7 @@ def test_scripts_and_eval_load_without_jax():
 
 
 @pytest.mark.parametrize("script", ["profile_vmem_gather", "profile_gather", "profile_sdf", "profile_fit",
-                                    "tune_skin_fwd", "tune_gather_probes", "tune_chamfer_nn"])
+                                    "tune_skin_fwd", "tune_gather_probes", "tune_chamfer_nn", "profile_train"])
 def test_profiling_entry_points_fail_without_a_card(script):
     """A measurement never falls back to the CPU."""
     r = _run(["-m", f"psi_tpu_torch.scripts.{script}"], ROOT)
@@ -75,6 +76,26 @@ def test_no_jax_or_psi_tpu_import_in_port_sources():
     ]
     assert not offenders, offenders
     assert FORBIDDEN.search("from psi_tpu.ops import x") and not FORBIDDEN.search("from psi_tpu_torch.ops import x")
+
+
+def test_training_modules_are_in_the_walk_and_chip_smoke_imports_no_jax():
+    """The new slice's modules are among those the walk above imports, and
+    chip_smoke.py itself names neither JAX nor psi_tpu in an import."""
+    modules = {m.name for m in pkgutil.walk_packages([str(PKG)], prefix="psi_tpu_torch.")}
+    assert {"psi_tpu_torch.losses.terms", "psi_tpu_torch.models.cvae_s2", "psi_tpu_torch.train.objective",
+            "psi_tpu_torch.train.loop", "psi_tpu_torch.train.checkpoint",
+            "psi_tpu_torch.scripts.profile_train"} <= modules
+    assert not FORBIDDEN.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_contact_term_never_falls_back_to_the_twin():
+    """The objective's contact term hands its clouds to K3's wrapper, which
+    takes the twin only for CPU tensors and refuses what is neither cpu nor
+    cuda."""
+    from psi_tpu_torch.ops.chamfer import chamfer_one_sided
+
+    with pytest.raises(ValueError):
+        chamfer_one_sided(torch.zeros((1, 4, 3), device="meta"), torch.zeros((1, 9, 3), device="meta"))
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -534,3 +534,110 @@ def test_probes_reject_operands_they_do_not_take(card):
         gp.row_gather(t, r.long())
     with pytest.raises(ValueError):
         gp.lane_gather(t, r.cpu())
+
+
+# ---- the training path: K3 through scene_geometry_losses and the train step
+
+TRAIN_ASSETS = dict(num_verts=300, num_joints=12, num_scenes=3, sdf_dim=16, scene_points=777, n_contact=45)
+
+
+def _train_world(dev, model_type="s1", batch=5):
+    """Tiny assets (a ragged 777-point cloud: no multiple of K3's tile or
+    chunk), a model and one batch on ``dev``, all from seeds."""
+    from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
+    from psi_tpu_torch.train.loop import _stage_chunk, init_state
+    from psi_tpu_torch.utils.config import TrainConfig
+
+    assets, _ = make_synthetic_assets(**TRAIN_ASSETS, device=dev)
+    state = init_state(TrainConfig(model_type=model_type, latentD=32, image_size=32, batch_size=batch, seed=0), dev)
+    host = SyntheticBatchGenerator(num_scenes=3, batches_per_epoch=1, seed=4, image_size=32).next_batch(batch)
+    staged = {k: v[0] for k, v in _stage_chunk([host], False, dev).items()}
+    gen = torch.Generator().manual_seed(9)
+    eps = [torch.randn((batch, 32), generator=gen).to(dev) for _ in range(2)]
+    return assets, state, staged, (eps[0] if model_type == "s1" else tuple(eps))
+
+
+@pytest.mark.cuda
+def test_scene_geometry_losses_launch_k3_on_the_unpruned_ragged_cloud(card):
+    """The same bodies on the card and on the CPU: a CUDA tensor launches K3
+    (once, over all 777 points), a CPU tensor takes the twin (no launch), and
+    the two losses and their gradients agree (f32 sums in another order:
+    1e-5 relative on the losses, 1e-4 of the largest gradient entry)."""
+    from psi_tpu_torch.train.objective import scene_geometry_losses
+
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        assets, _, batch, _ = _train_world(dev)
+        x = (batch["xh"] * 1.0).requires_grad_(True)
+        n = tch.NN_ARGMIN.launches
+        contact, collision = scene_geometry_losses(assets, x, batch["cam_ext"], batch["scene_idx"], 1.0)
+        assert tch.NN_ARGMIN.launches - n == (1 if dev.type == "cuda" else 0)
+        (g,) = torch.autograd.grad(contact + collision, x)
+        out[dev.type] = (contact.item(), collision.item(), g.cpu())
+    assert out["cpu"][0] > 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-8)
+    assert (out["cuda"][2] - out["cpu"][2]).abs().max() <= 1e-4 * out["cpu"][2].abs().max()
+
+
+@pytest.mark.cuda
+def test_pruned_scene_geometry_losses_also_launch_k3(card):
+    from psi_tpu_torch.train.objective import scene_geometry_losses
+
+    assets, _, batch, _ = _train_world(card)
+    n = tch.NN_ARGMIN.launches
+    pruned, _ = scene_geometry_losses(assets, batch["xh"], batch["cam_ext"], batch["scene_idx"], 1.0,
+                                      prune_scene_points=256)
+    full, _ = scene_geometry_losses(assets, batch["xh"], batch["cam_ext"], batch["scene_idx"], 1.0)
+    assert tch.NN_ARGMIN.launches - n == 2
+    assert pruned.item() >= full.item() > 0  # a subset of the cloud cannot be nearer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["s1", "s2"])
+def test_train_step_on_the_card_matches_the_cpu(model_type, card):
+    """One step at small width, same weights, batch and injected noise: the
+    metrics within 1e-4 relative, every parameter's gradient within 1e-3 of
+    that parameter's largest |CPU gradient| (on the card the backward of
+    gather, index_add_ and cuDNN's convolutions sums with atomics), one K3
+    launch on the card and none on the CPU."""
+    from psi_tpu_torch.train.loop import make_train_step
+    from psi_tpu_torch.utils.config import LossConfig
+
+    sides = {}
+    for dev in (torch.device("cpu"), card):
+        assets, state, batch, eps = _train_world(dev, model_type)
+        n = tch.NN_ARGMIN.launches
+        state, metrics = make_train_step(assets, LossConfig(), model_type)(state, batch, 0.7, 1.0, eps=eps)
+        assert tch.NN_ARGMIN.launches - n == (1 if dev.type == "cuda" else 0)
+        assert state.step == 1 and state.model.training
+        sides[dev.type] = ({k: v.item() for k, v in metrics.items()},
+                           {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+    for k, v in sides["cpu"][0].items():
+        np.testing.assert_allclose(sides["cuda"][0][k], v, rtol=1e-4, atol=1e-8, err_msg=k)
+    for k, g in sides["cpu"][1].items():
+        assert (sides["cuda"][1][k] - g).abs().max() <= 1e-3 * g.abs().max() + 1e-12, k
+
+
+@pytest.mark.cuda
+def test_trainop_defaults_to_the_card_and_resumes_there(card, tmp_path):
+    """TrainOP with no device trains on the card (K3 once a step), and a
+    second TrainOP resumes its checkpoint, the card generator's state included."""
+    from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
+    from psi_tpu_torch.train.loop import TrainOP
+    from psi_tpu_torch.utils.config import LossConfig, TrainConfig
+
+    assets, _ = make_synthetic_assets(**TRAIN_ASSETS, device=card)
+    cfg = TrainConfig(latentD=32, image_size=32, batch_size=4, epoch=2, save_dir=str(tmp_path), saving_per_epochs=1,
+                      verbose=False, scan_epoch=True, scan_chunk_size=2, stage_bf16=True)
+    gen = SyntheticBatchGenerator(num_scenes=3, batches_per_epoch=3, seed=1, image_size=32)
+    op = TrainOP(cfg, LossConfig(), assets)
+    n = tch.NN_ARGMIN.launches
+    last = op.train(gen)
+    assert tch.NN_ARGMIN.launches - n == 6 and op.state.step == 6 and np.isfinite(last["loss"])
+    assert next(op.model.parameters()).device.type == "cuda"
+    op2 = TrainOP(cfg, LossConfig(), assets)
+    op2.train(gen)
+    assert op2.state.step == 6
+    assert torch.equal(torch.randn(3, generator=op.state.generator, device=card),
+                       torch.randn(3, generator=op2.state.generator, device=card))
