@@ -23,7 +23,9 @@ verts), with random weights made from a seed. Phases, one line each:
   5. K3       chamfer NN argmin vs its twin at M=2048, at M=20000 and at
               the two-sided chamfer's swapped shape (the pruned cloud's
               points against the contact vertices); int64 indices, two runs
-              equal; beside the bound, the issue floor of the exact formula
+              equal; beside the bound, the issue floor of the exact formula.
+              Then K1, K2 and K3 vs their twins at the other body counts of
+              phases 13-14 (128, 64, 4 and 1), full width, untimed
   6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6,
               finite bodies, mean loss falling, peak device memory; then
               bodies/s
@@ -69,6 +71,34 @@ and then the training path and the Stage-2 sampler:
               bound, its twin (equal indices) and torch.cdist + argmin.
  12. s2       one N=256 production generate+fit with HumanCVAES2 as the
               sampler: launch counts 20/20/6, finite bodies, falling loss
+
+ and then the file-driven path and the fit's off-by-default knobs:
+
+ 13. drivers  in a temporary directory: TestOP (on the card by default)
+              writes 300 body_gen_*.pkl for phase 6's snapshot; FittingOP
+              with FitConfig.production(num_iter=20), max_population=256,
+              fits them through fitting_files (two chunks, the second
+              padded from 44 to 256) and writes 300; a second call returns
+              0. Launch counts of the two chunks asserted (each 20/20/6 plus
+              its final metrics pass: one K1, one K3). The first 256 fitted
+              rows against make_fit_step on the same arrays, held to the
+              difference of two runs of make_fit_step (equal bits if that
+              is 0), and their scores to make_fit_step's rows' (equal when
+              the rows are). The fitted files scored by
+              collision_contact_scores and diversity_metrics. Seconds for
+              write, fit and read-back.
+ 14. knobs    N=256 from phase 6's bodies, each with launch counts
+              asserted and its wall time: cheap_collision_verts=2048 (mean
+              loss falls; final full-vertex metrics beside the default's),
+              overlap_chunks=2 (each half equal in bits to the one-chunk
+              fit of its 128 bodies alone; difference to one chunk of 256:
+              iteration 0 to 1e-4, the fitted bodies' mean held to twice the
+              default's own drift for an input moved by 1e-6, measured
+              here), remat_decode (equal bits,
+              K1 twice a pass, peak memory of both),
+              make_generate_fit_rows (4 snapshots x 64 rows, each group in
+              its own scene) and the carried-Adam mode at N=4 (serial:
+              N x 20 passes at one body).
 
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
@@ -432,6 +462,38 @@ def check_k3(contact, y_pruned, y_full):
     return out
 
 
+def check_path_batches(cb, A12, cam12, bundle, contact, y_pruned):
+    """K1, K2 and K3 against their twins at the other body counts that phases
+    13 and 14 give them, at full width: overlap_chunks=2 runs every pass at
+    N/2 bodies, the vertex subset's scoring decode launches K1 at
+    fit.fitting.N_SCORE bodies, and the carried-Adam mode runs its passes at
+    one body and its metrics pass at N_CARRY. Slices of phase 3-5's operands, the same
+    tolerances, no timing."""
+    import torch
+
+    from psi_tpu_torch.fit.fitting import N_SCORE
+    from psi_tpu_torch.ops.chamfer import nn_argmin, nn_argmin_reference
+    from psi_tpu_torch.ops.fused_skinning import (fused_skinning_bwd, fused_skinning_bwd_reference,
+                                                  fused_skinning_fwd, fused_skinning_fwd_reference)
+
+    out = {}
+    g_all = torch.randn((cb.shape[0], bundle.n_verts, 3), generator=torch.Generator().manual_seed(SEED + 4)).to(cb.device)
+    for B in (cb.shape[0] // 2, N_SCORE, N_CARRY, 1):
+        ops = (cb[:B].contiguous(), A12[:B].contiguous(), cam12[:B].contiguous(), bundle)
+        g, x, y = g_all[:B].contiguous(), contact[:B].contiguous(), y_pruned[:B].contiguous()
+        k1_err = (fused_skinning_fwd(*ops) - fused_skinning_fwd_reference(*ops)).abs().max().item()
+        k2_rel = max(((a - r).abs().max() / r.abs().max()).item()
+                     for a, r in zip(fused_skinning_bwd(*ops, g), fused_skinning_bwd_reference(*ops, g)))
+        k3_equal = torch.equal(nn_argmin(x, y), nn_argmin_reference(x, y))
+        out[B] = {"k1_max_abs_err": k1_err, "k2_max_rel_err": k2_rel, "k3_equal": k3_equal}
+        log(f"[K1-K3] at B={B}, V={bundle.n_verts}, N={x.shape[1]}, M={y.shape[1]}: K1 max |kernel - twin| {k1_err:.3e} m "
+            f"(tol {K1_ABS_TOL}); K2 max |kernel - twin| / max |twin| {k2_rel:.3e} (tol {K2_REL_TOL}); K3 indices equal "
+            f"the twin's: {k3_equal}")
+        if not (k1_err <= K1_ABS_TOL and k2_rel <= K2_REL_TOL and k3_equal):
+            raise AssertionError(f"a kernel disagrees with its twin at B={B}: {out[B]}")
+    return out
+
+
 def check_probes(dev):
     """Phase 8, the probe path: profile_vmem_gather's entry points, which
     hold each probe kernel to its twin (exactly equal) and time both.
@@ -709,6 +771,296 @@ def check_s2_slice(dev, assets, xs, cam_int, max_d, scene_idx, kernels, want):
     return {"wall_s": wall, "launches": launches, "loss_first": loss0, "loss_last": loss_last}
 
 
+N_FILES = 300  # TestOP's default n_samples, the reference's per-scene population
+MAX_POPULATION = 256
+CHEAP_VERTS = 2048
+N_CARRY = 4  # bodies of the carried-Adam run: it is serial, N x NUM_ITER passes at batch 1
+ROWS_SNAPSHOTS = 4
+
+
+def counted(kernels, fn):
+    """(fn(), launch counts of ``kernels`` during it, wall seconds, peak GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return out, {k.name: k.launches for k in kernels}, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def want_launches(kernels, k1: int, k2: int, k3: int) -> dict:
+    return dict(zip((k.name for k in kernels), (k1, k2, k3)))
+
+
+def check_launches(tag: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{tag} launch counts {got} != {want}")
+
+
+def check_drivers(dev, model, assets, batch, cam_ext, kernels, smi: str):
+    """Phase 13: generate -> files -> fit -> files -> score."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.eval import collision_contact_scores, diversity_metrics
+    from psi_tpu_torch.fit.fitting import FittingOP, fit_schedule, make_fit_step
+    from psi_tpu_torch.gen.sample import TestOP
+    from psi_tpu_torch.geometry.bodyvec import body_params_parse
+    from psi_tpu_torch.utils.config import FitConfig
+
+    cfg = FitConfig.production(num_iter=NUM_ITER)
+    snapshot = {k: batch[k] for k in ("xs", "cam_int", "max_d")}
+    snapshot["cam_ext"] = cam_ext[:1].cpu().numpy()
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_files_"))
+    try:
+        gen_dir, fit_dir = workdir / "gen" / "scene", workdir / "fit"
+        op = TestOP(model, n_samples=N_FILES, seed=SEED + 30)  # no device given: the card
+        fitter = FittingOP(assets, cfg, scene_idx=0, max_population=MAX_POPULATION)
+        if op.device != dev or fitter.device != dev:
+            raise AssertionError("TestOP or FittingOP did not default to the card")
+        t0 = time.time()
+        n_written = op.test(snapshot, str(workdir / "gen"), "scene")
+        write_s = time.time() - t0
+        n_fitted, launches, fit_s, _ = counted(kernels, lambda: fitter.fitting_files(str(gen_dir), str(fit_dir)))
+        again = fitter.fitting_files(str(gen_dir), str(fit_dir))
+        # each chunk: the schedule's passes and one final metrics pass (K1 and K3, no backward)
+        kinds = fit_schedule(cfg)
+        chunks = -(-N_FILES // MAX_POPULATION)
+        searches = sum(kind != "cheap" for kind in kinds)
+        want = want_launches(kernels, chunks * (len(kinds) + 1), chunks * len(kinds), chunks * (searches + 1))
+
+        def read(folder):
+            recs = []
+            for name in sorted(p.name for p in folder.iterdir()):
+                with open(folder / name, "rb") as f:
+                    recs.append(pickle.load(f))
+            return recs
+
+        t0 = time.time()
+        gen_recs, fit_recs = read(gen_dir), read(fit_dir)
+        read_s = time.time() - t0
+        plain = all(type(v) is np.ndarray for r in fit_recs for v in r.values())
+        names = sorted(p.name for p in fit_dir.iterdir())
+        if not (n_written == n_fitted == len(fit_recs) == N_FILES and again == 0 and plain
+                and names[0] == "body_gen_000900.pkl" and names[-1] == f"body_gen_{900 + N_FILES - 1:06d}.pkl"
+                and fit_recs[0]["transl"].shape == (1, 3) and fit_recs[0]["body_pose"].dtype == np.float32):
+            raise AssertionError(f"[drivers] wrote {n_written}, fitted {n_fitted} then {again}, read {len(fit_recs)}; "
+                                 f"plain numpy records: {plain}")
+        check_launches("[drivers]", launches, want)
+
+        def stack(recs):
+            x = torch.cat([body_params_parse(r) for r in recs]).to(dev)
+            cam = torch.from_numpy(np.concatenate([np.asarray(r["cam_ext"], np.float32).reshape(-1, 4, 4)[:1]
+                                                   for r in recs])).to(dev)
+            return x, cam
+
+        x_gen, cam_gen = stack(gen_recs)
+        x_fit, cam_fit = stack(fit_recs)
+        sidx = torch.zeros(N_FILES, dtype=torch.int64, device=dev)
+        if not (torch.equal(cam_gen, cam_fit) and torch.isfinite(x_fit).all()):
+            raise AssertionError("[drivers] fitted records lost their cam_ext or are not finite")
+        # the first chunk is exactly make_fit_step on the first 256 files' arrays
+        direct = make_fit_step(assets, cfg)
+        head = (x_gen[:MAX_POPULATION], cam_gen[:MAX_POPULATION], sidx[:MAX_POPULATION])
+        run_a, run_b = direct(*head)[0], direct(*head)[0]
+        run_to_run = (run_a - run_b).abs().max().item()
+        files_diff = (x_fit[:MAX_POPULATION] - run_a).abs().max().item()
+        if not files_diff <= run_to_run:
+            raise AssertionError(f"[drivers] files differ from make_fit_step by {files_diff}, two runs by {run_to_run}")
+        # and so are its scores: the scorers on the files' rows and on make_fit_step's rows
+        head_scores = [collision_contact_scores(assets, x, *head[1:]) for x in (x_fit[:MAX_POPULATION], run_a)]
+        if run_to_run == 0.0 and head_scores[0] != head_scores[1]:
+            raise AssertionError(f"[drivers] equal rows, other scores: files {head_scores[0]}, make_fit_step {head_scores[1]}")
+        if not (abs(head_scores[0][0] - head_scores[1][0]) <= EVAL_NONCOLLISION_TOL
+                and abs(head_scores[0][1] - head_scores[1][1]) <= EVAL_CONTACT_TOL):
+            raise AssertionError(f"[drivers] scores of the files' rows {head_scores[0]} differ from those of "
+                                 f"make_fit_step's {head_scores[1]}")
+        t0 = time.time()
+        nc, ct = collision_contact_scores(assets, x_fit, cam_fit, sidx)
+        ent, md = diversity_metrics(x_fit, k=20)
+        nc0, ct0 = collision_contact_scores(assets, x_gen, cam_gen, sidx)
+        torch.cuda.synchronize()
+        score_s = time.time() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[drivers] TestOP wrote {n_written} pickles in {write_s:.2f} s; FittingOP.fitting_files fitted {n_fitted} in "
+        f"{fit_s:.2f} s ({chunks} chunks of {MAX_POPULATION}, the last padded from {N_FILES - MAX_POPULATION}; "
+        f"{N_FILES / fit_s:.2f} bodies/s, files included), a second call {again}; read back in {read_s:.2f} s; launches "
+        f"{launches} (want {want}); first {MAX_POPULATION} rows vs make_fit_step max |diff| {files_diff:.3e} (two runs of "
+        f"make_fit_step {run_to_run:.3e}), their scores (non-collision, contact) {head_scores[0]} vs {head_scores[1]}; scored in {score_s:.2f} s: non-collision {nc0:.6f} -> {nc:.6f}, contact "
+        f"{ct0:.6f} -> {ct:.6f}, diversity entropy {ent:.6f}, mean centroid distance {md:.6f}; on {smi}")
+    if not (0.0 <= nc <= 1.0 and 0.0 <= ct <= 1.0 and ent > 0.0):
+        raise AssertionError("[drivers] scores out of range")
+    return {"write_s": write_s, "fit_s": fit_s, "read_s": read_s, "score_s": score_s, "launches": launches,
+            "files_vs_fit_step": files_diff, "fit_step_run_to_run": run_to_run,
+            "head_scores_files": head_scores[0], "head_scores_fit_step": head_scores[1],
+            "non_collision": nc, "contact": ct, "non_collision_before": nc0, "contact_before": ct0,
+            "entropy": ent, "mean_dist": md}
+
+
+def check_knobs(dev, model, assets, x72_init, cam_ext, scene_idx, kernels, sens_max: float, smi: str):
+    """Phase 14: the three FitConfig knobs, make_generate_fit_rows and the
+    carried-Adam mode, from phase 6's bodies. ``sens_max`` is phase 7's
+    measured sensitivity of a fitted coordinate to a 1e-6 change of the latents."""
+    import torch
+
+    from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator
+    from psi_tpu_torch.fit.fitting import (fit_schedule, make_fit_step, make_fit_step_carry_opt_state,
+                                           make_generate_fit_rows)
+    from psi_tpu_torch.gen.sample import generate_bodies_rows
+    from psi_tpu_torch.scripts.profile_fit import floor_placement
+    from psi_tpu_torch.utils.config import FitConfig
+
+    base = FitConfig.production(num_iter=NUM_ITER)
+    kinds = fit_schedule(base)
+    n_iter, searches = len(kinds), sum(kind != "cheap" for kind in kinds)
+    args = (x72_init, cam_ext, scene_idx)
+    out = {}
+
+    def run(tag, cfg, want):
+        fit = make_fit_step(assets, cfg)
+        fit(*args)  # warm: the first call of a shape pays cuBLAS' and the allocator's set-up
+        (x, m, h), launches, wall, peak = counted(kernels, lambda: fit(*args))
+        check_launches(f"[knobs] {tag}", launches, want)
+        if x.shape != (N_BODIES, 72) or not torch.isfinite(x).all():
+            raise AssertionError(f"[knobs] {tag}: fitted bodies are not finite [N, 72]")
+        out[tag] = {"wall_s": wall, "peak_gb": peak, "launches": launches,
+                    "loss_first": h[0].mean().item(), "loss_last": h[-1].mean().item(),
+                    "final": {k: v.mean().item() for k, v in m.items()}}
+        return x, m, h
+
+    # the default, with its final metrics pass (one more K1 and K3)
+    x0, m0, h0 = run("default", base, want_launches(kernels, n_iter + 1, n_iter, searches + 1))
+
+    # cheap_collision_verts: fused passes are those before the subset exists and the full ones after
+    w = min(base.refresh_warmup, n_iter)
+    fused = w + sum(kind == "full" for kind in kinds[w:])
+    xs_, ms, hs = run("cheap_collision_verts", dataclasses.replace(base, cheap_collision_verts=CHEAP_VERTS),
+                      want_launches(kernels, fused + 1 + 1, fused, searches + 1))  # + the scoring decode, + metrics
+    o = out["cheap_collision_verts"]
+    log(f"[knobs] cheap_collision_verts={CHEAP_VERTS}: {o['wall_s']:.4f} s (default {out['default']['wall_s']:.4f} s), launches "
+        f"{o['launches']} ({fused} fused passes + the scoring decode at {min(64, N_BODIES)} bodies + the metrics pass; the "
+        f"other {n_iter - fused} passes decode {assets.contact_vids.shape[0]} + <= {CHEAP_VERTS} rows through the 'fast' "
+        f"einsums); mean loss {o['loss_first']:.6f} -> {o['loss_last']:.6f} (over the subset on cheap passes); final "
+        f"full-vertex metrics " + ", ".join(f"{k} {v:.6f} (default {out['default']['final'][k]:.6f})" for k, v in o["final"].items())
+        + f"; peak {o['peak_gb']:.4f} GB; on {smi}")
+    if not o["loss_last"] < o["loss_first"]:
+        raise AssertionError("[knobs] cheap_collision_verts: the mean loss did not fall")
+
+    # the yardstick for a run of the same fit with sums taken in another order: how far the default's
+    # fitted bodies move when its input moves by 1e-6 relative, here on the card at N=256 (phase 7
+    # measures the same on the CPU at 16 bodies: max the figure passed in)
+    plain = make_fit_step(assets, base, want_metrics=False)
+    moved = [plain(x72_init * (1.0 + sign * CROSS_PERTURB), cam_ext, scene_idx) for sign in (1.0, -1.0)]
+    own_last = [h[-1].mean().item() for _, _, h in moved]
+    moved = [(x - x0).abs() for x, _, _ in moved]
+    own_max, own_mean = max(d.max().item() for d in moved), max(d.mean().item() for d in moved)
+
+    # overlap_chunks: the same iterates, chunk after chunk
+    xc, mc, hc = run("overlap_chunks", dataclasses.replace(base, overlap_chunks=2),
+                     want_launches(kernels, 2 * n_iter + 1, 2 * n_iter, 2 * searches + 1))
+    d_x, d_mean, d_h = (xc - x0).abs().max().item(), (xc - x0).abs().mean().item(), (hc - h0).abs().max().item()
+    d_h0 = ((hc[0] - h0[0]).abs() / h0[0].abs().clamp(min=1e-6)).max().item()
+    # held on the mean: an axis-angle coordinate near pi wraps by 2 pi, so the largest of 256 x 72
+    # differences is one body's wrap on either side and is printed, not held
+    tol_mean = max(CROSS_MEAN_TOL, CROSS_SENS_FACTOR * own_mean)
+    o = out["overlap_chunks"]
+    o.update(max_diff_x72=d_x, mean_diff_x72=d_mean, max_diff_hist=d_h, iter0_rel_diff=d_h0,
+             own_sensitivity_max=own_max, own_sensitivity_mean=own_mean,
+             own_sensitivity_loss_last=own_last)
+    log(f"[knobs] overlap_chunks=2: {o['wall_s']:.4f} s (default {out['default']['wall_s']:.4f} s), launches {o['launches']}; "
+        f"difference to one chunk: iteration-0 loss {d_h0:.3e} relative (tol {CROSS_LOSS0_REL_TOL}), fitted x72 mean "
+        f"{d_mean:.3e} (tol {tol_mean:.3e}) max {d_x:.3e}, loss history max {d_h:.3e}, mean final loss "
+        f"{o['loss_last']:.6f} (default {out['default']['loss_last']:.6f}); the default's own drift for an input moved by "
+        f"1e-6 relative: mean {own_mean:.3e} max {own_max:.3e}, mean final loss {own_last[0]:.6f} and {own_last[1]:.6f} (on the CPU at {N_CROSS} bodies: max {sens_max:.3e}); "
+        f"peak {o['peak_gb']:.4f} GB; on {smi}")
+    if not (d_h0 <= CROSS_LOSS0_REL_TOL and d_mean <= tol_mean):
+        raise AssertionError("[knobs] overlap_chunks=2 drifts from one chunk beyond the fit's own sensitivity")
+    # the check the fit's chaos cannot reach: a chunk is a fit of its own bodies at its own batch size,
+    # with its own Adam moments and carried state, so each half of the two-chunk run must be the
+    # one-chunk fit of that half alone, the same operations at the same shapes: equal bits (the
+    # kernels and the library calls on the path are deterministic: phase 13's two runs differ by 0)
+    half = N_BODIES // 2
+    halves = [plain(*(a[lo:lo + half] for a in args)) for lo in (0, half)]
+    x_halves, h_halves = torch.cat([x for x, _, _ in halves]), torch.cat([h for _, _, h in halves], dim=1)
+    o["halves_max_diff_x72"] = (xc - x_halves).abs().max().item()
+    o["halves_max_diff_hist"] = (hc - h_halves).abs().max().item()
+    o["halves_bit_equal"] = torch.equal(xc, x_halves) and torch.equal(hc, h_halves)
+    log(f"[knobs] overlap_chunks=2 against the one-chunk fits of bodies 0-{half - 1} and {half}-{N_BODIES - 1} alone, all "
+        f"{n_iter} iterations: equal bits {o['halves_bit_equal']} (fitted x72 max |diff| {o['halves_max_diff_x72']:.3e}, loss "
+        f"history {o['halves_max_diff_hist']:.3e})")
+    if not o["halves_bit_equal"]:
+        raise AssertionError("[knobs] overlap_chunks=2: a chunk is not the fit of its own bodies alone")
+
+    # remat_decode: K1 again in every backward pass, equal bits
+    xr, mr, hr = run("remat_decode", dataclasses.replace(base, remat_decode=True),
+                     want_launches(kernels, 2 * n_iter + 1, n_iter, searches + 1))
+    same = torch.equal(xr, x0) and torch.equal(hr, h0) and all(torch.equal(mr[k], m0[k]) for k in m0)
+    o = out["remat_decode"]
+    o["bit_equal"] = same
+    log(f"[knobs] remat_decode: {o['wall_s']:.4f} s (default {out['default']['wall_s']:.4f} s), launches {o['launches']}; "
+        f"bit-equal to the default: {same}; peak device memory {o['peak_gb']:.4f} GB (default "
+        f"{out['default']['peak_gb']:.4f} GB); on {smi}")
+    if not same:
+        raise AssertionError("[knobs] remat_decode changed the fitted bits")
+
+    # make_generate_fit_rows: 4 snapshots x 64 rows, each group fitted in its own scene
+    per = N_BODIES // ROWS_SNAPSHOTS
+    b = SyntheticBatchGenerator(num_scenes=ASSET_KW["num_scenes"], batches_per_epoch=1, seed=SEED + 40,
+                                image_size=MODEL_KW["image_size"]).next_batch(ROWS_SNAPSHOTS)
+    xs_stack, cam_int_stack, max_d_stack = (torch.from_numpy(b[k]).to(dev) for k in ("xs", "cam_int", "max_d"))
+    req = torch.arange(N_BODIES, device=dev) // per
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED + 41)
+    pre = generate_bodies_rows(model, xs_stack, cam_int_stack, max_d_stack, req, generator=gen())
+    cam_rows = torch.cat([floor_placement(pre[g * per:(g + 1) * per], assets.grid_mins[g], assets.grid_maxs[g])
+                          for g in range(ROWS_SNAPSHOTS)])
+    rows = make_generate_fit_rows(model, assets, base, want_metrics=False)
+    rows(xs_stack, cam_int_stack, max_d_stack, req, cam_rows, req, generator=gen())
+    (xg, _, hg), launches, wall, peak = counted(
+        kernels, lambda: rows(xs_stack, cam_int_stack, max_d_stack, req, cam_rows, req, generator=gen()))
+    check_launches("[knobs] generate_fit_rows", launches, want_launches(kernels, n_iter, n_iter, searches))
+    by_group = [(hg[0, g * per:(g + 1) * per].mean().item(), hg[-1, g * per:(g + 1) * per].mean().item())
+                for g in range(ROWS_SNAPSHOTS)]
+    out["generate_fit_rows"] = {"wall_s": wall, "peak_gb": peak, "launches": launches, "loss_by_snapshot": by_group}
+    log(f"[knobs] make_generate_fit_rows, {ROWS_SNAPSHOTS} snapshots x {per} rows, scenes 0-{ROWS_SNAPSHOTS - 1}: {wall:.4f} s "
+        f"({N_BODIES / wall:.2f} bodies/s), launches {launches}; mean loss by snapshot "
+        + ", ".join(f"{a:.6f} -> {z:.6f}" for a, z in by_group) + f"; on {smi}")
+    if xg.shape != (N_BODIES, 72) or not torch.isfinite(xg).all() or not hg[-1].mean() < hg[0].mean():
+        raise AssertionError("[knobs] generate_fit_rows: bodies not finite [N, 72] or the mean loss not falling")
+
+    # the carried-Adam mode: serial, a full pass every iteration at one body
+    carry = make_fit_step_carry_opt_state(assets, base)
+    small = tuple(a[:N_CARRY] for a in args)
+    (xa, ma), launches, wall, peak = counted(kernels, lambda: carry(*small))
+    check_launches("[knobs] carried Adam", launches,
+                   want_launches(kernels, N_CARRY * n_iter + 1, N_CARRY * n_iter, N_CARRY * n_iter + 1))
+    # what the inherited moments do is judged after 2 iterations, before the
+    # 20-iteration fit's own sensitivity (phase 7) swamps a rounding-level difference
+    short = dataclasses.replace(base, num_iter=2)
+    xa2 = make_fit_step_carry_opt_state(assets, short)(*small)[0]
+    xf2 = make_fit_step(assets, dataclasses.replace(short, refresh_every=1))(*small)[0]
+    # means over the coordinates: one near-zero gradient entry that changes sign moves one coordinate by ~lr
+    d0 = (xa2[0] - xf2[0]).abs().mean().item()
+    d_rest = (xa2[1:] - xf2[1:]).abs().mean().item()
+    out["carried_adam"] = {"wall_s": wall, "launches": launches, "n": N_CARRY, "first_body_vs_fresh": d0,
+                           "later_bodies_vs_fresh": d_rest, "final_total": ma["total"].mean().item()}
+    log(f"[knobs] carried-Adam mode at N={N_CARRY} (serial: {N_CARRY * n_iter} passes at one body): {wall:.4f} s "
+        f"({wall / (N_CARRY * n_iter) * 1e3:.2f} ms a pass), launches {launches}; final mean total "
+        f"{ma['total'].mean().item():.6f}; after 2 iterations body 0 vs the fresh-state fit of full passes, mean |diff| {d0:.3e} "
+        f"(the same moments at another batch size), bodies 1-{N_CARRY - 1} {d_rest:.3e} (inherited moments); on {smi}")
+    if xa.shape != (N_CARRY, 72) or not torch.isfinite(xa).all() or not 10 * d0 < d_rest:
+        raise AssertionError("[knobs] carried Adam: bodies not finite, body 0 not the fresh fit's, or inherited "
+                             "moments made no difference")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -724,7 +1076,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-12 on card ``dev``; raises on the first failure."""
+    """Phases 1-14 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -790,6 +1142,7 @@ def smoke(dev) -> None:
         y_full = assets.scene_verts[scene_idx].contiguous()
         y_pruned = select_near_tiles(y_full, contact.mean(dim=1), PRUNE).contiguous()
         k3 = check_k3(contact, y_pruned, y_full)
+        path_batches = check_path_batches(cb, A12, cam12, bundle, contact, y_pruned)
 
     # ---- 6. the slice: one production generate+fit call through the kernels
     cfg = FitConfig.production(num_iter=NUM_ITER)
@@ -900,6 +1253,12 @@ def smoke(dev) -> None:
     # ---- 12. the Stage-2 sampler in front of the production fit
     s2 = check_s2_slice(dev, assets, xs, cam_int, max_d, scene_idx, kernels, want)
 
+    # ---- 13. the file-driven path: TestOP -> files -> FittingOP -> files -> scorers
+    drivers = check_drivers(dev, model, assets, batch, cam_ext, kernels, smi)
+
+    # ---- 14. the fit's knobs, the coalesced sampler in front of the fit, the carried-Adam mode
+    knobs = check_knobs(dev, model, assets, x72_pre, cam_ext, scene_idx, kernels, own[0], smi)
+
     # ---- the record: each kernel with the launch count of its path's run
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
@@ -908,16 +1267,20 @@ def smoke(dev) -> None:
              "ms": res["ms"], "device_ms": res["device_ms"], "plain_ms": res["plain_ms"],
              "bound_ms": res["bound_ms"],
              "bound_by": res["bound_by"], "library_ms": res["library_ms"]} for k, res, counts in results]
-    # K3 is on four paths: each was driven with the counts set to 0 just before
-    rows[2]["launches_by_path"] = {"generate_fit_s1": launches[NN_ARGMIN.name], "train_s1": train["s1"]["k3_launches"],
-                                   "train_s2": train["s2"]["k3_launches"], "generate_fit_s2": s2["launches"][NN_ARGMIN.name]}
+    # each path was driven with the counts set to 0 just before and read just after
+    for row, k in zip(rows[:3], kernels):
+        row["launches_by_path"] = {"generate_fit_s1": launches[k.name], "generate_fit_s2": s2["launches"][k.name],
+                                   "fit_files": drivers["launches"][k.name],
+                                   "fit_cheap_subset": knobs["cheap_collision_verts"]["launches"][k.name]}
+    rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"])
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb},
                     "k1": {"stage_ms": k1["stage_ms"]},
                     "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"]}, "hmma": hmma,
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
-                    "train": train, "k3_train_shape": k3_train, "s2_slice": s2}))
+                    "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,
+                    "knobs": knobs, "kernels_at_path_batches": path_batches}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -102,12 +102,16 @@ def lbs(
     parents: Tuple[int, ...],
     lbs_weights: torch.Tensor,
     precision: str = "high",
+    joints_direct: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full LBS forward -> (verts [B, V, 3], joints [B, J, 3]).
 
     betas [B, L]; pose_aa [B, J*3] (joint 0 = global orient); v_template
     [V, 3]; shapedirs [V, 3, L]; posedirs [(J-1)*9, V*3] or None;
-    J_regressor [J, V]; lbs_weights [V, J].
+    J_regressor [J, V]; lbs_weights [V, J]. joints_direct: the (j_template,
+    j_shapedirs) pair of ``joint_regressor_direct``; the joints then come
+    from betas directly, in f32 on every tier. Required when the per-vertex
+    tensors are a vertex subset of the model (J_regressor is then unused).
     """
     if precision not in PRECISIONS:
         raise ValueError(f"lbs precision must be one of {PRECISIONS}, got {precision!r}")
@@ -116,7 +120,10 @@ def lbs(
     J = len(parents)
 
     v_shaped = v_template[None] + blend_shapes(betas, shapedirs)
-    if fast:
+    if joints_direct is not None:
+        j_template, j_shapedirs = joints_direct
+        joints = j_template[None] + blend_shapes(betas, j_shapedirs)
+    elif fast:
         joints = vertices2joints(_bf16(J_regressor), _bf16(v_shaped))
     else:
         joints = vertices2joints(J_regressor, v_shaped)

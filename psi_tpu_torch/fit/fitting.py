@@ -23,19 +23,44 @@ with the two-cloud-gradient ``chamfer_one_sided``.
 On the card the fused tier's decode runs kernels K1 (forward) and K2
 (backward) every iteration and the NN search runs kernel K3 on every
 full and nn_only pass.
+
+Three FitConfig fields, all off by default, change how the same fit runs:
+* ``cheap_collision_verts`` — after the warm-up the cached-SDF passes
+  decode only the contact vertices plus a vertex subset, through the
+  'fast' einsums (neither K1 nor K2), see ``_build_subset``;
+* ``overlap_chunks`` — the population is stepped as C equal chunks, each
+  with its own Adam moments and carried state; per-body results are the
+  batched program's, and the card runs the chunks one after the other;
+* ``remat_decode`` — the decode is recomputed in the backward pass
+  (``torch.utils.checkpoint``) instead of keeping its residuals: one more
+  K1 launch per pass on the fused tier.
+
+The drivers: ``fit_bodies`` (one call), ``make_generate_fit_step`` and
+``make_generate_fit_rows`` (sampler in front of the fit, one snapshot or
+one per row), ``make_fit_step_carry_opt_state`` (the reference's Adam
+carried from body to body, serial) and ``FittingOP`` (numpy populations
+and the reference's ``body_gen_*.pkl`` files).
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from psi_tpu_torch.body.decode import body_vec_to_verts
-from psi_tpu_torch.body.smplx_model import make_fused_bundle
-from psi_tpu_torch.gen.sample import Model, generate_bodies
-from psi_tpu_torch.geometry.bodyvec import convert_to_3D_rot, convert_to_6D_rot
+from psi_tpu_torch.body.smplx_model import make_fused_bundle, smplx_vertex_subset
+from psi_tpu_torch.gen.sample import Model, generate_bodies, generate_bodies_rows
+from psi_tpu_torch.geometry.bodyvec import (
+    body_params_encapsulate_list,
+    body_params_parse,
+    convert_to_3D_rot,
+    convert_to_6D_rot,
+)
 from psi_tpu_torch.ops.chamfer import chamfer_one_sided, chamfer_one_sided_nn
 from psi_tpu_torch.ops.prune import select_near_tiles
 from psi_tpu_torch.ops.sdf import (
@@ -60,12 +85,19 @@ def _per_body_losses(
     sel=None,
     fresh_nn: Optional[bool] = None,
     fresh_sdf: Optional[bool] = None,
+    sub: Optional[Dict] = None,
     fused_bundle=None,
 ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor], Tuple]]:
     """Summed loss with per-body terms (reference fitting_proxe.py:101-162).
 
     sel=None is the full pass; sel=(y_nn, sdf_cache) with fresh_nn=True,
     fresh_sdf=False the nn_only pass; with both False the cheap pass.
+    sub (FitConfig.cheap_collision_verts; ``_build_subset``): passes that read
+    the carried cell cache decode only the subset model's rows, contact
+    vertices first and then the collision rows, and the collision term
+    averages over the collision rows only (counting the contact rows too
+    would raise their weight in the mean); a full pass still decodes every
+    vertex and slices the cache it emits to ``coll_rows``.
     Returns (sum, (metrics, (y_nn, sdf_cache))): per-body metrics [N] and
     the state the next passes carry (None entries when refresh is off).
     """
@@ -82,11 +114,26 @@ def _per_body_losses(
     xh = convert_to_3D_rot(xhr)  # [N, 72]
     loss_vposer = cfg.weight_loss_vposer * torch.mean(xh[:, 16:48] ** 2, dim=1)
 
-    verts = body_vec_to_verts(
-        assets.smplx, assets.vposer, xh, cam_ext,
-        precision=cfg.lbs_precision, fused_bundle=fused_bundle,
-    )[0]
-    contact_verts = verts[:, assets.contact_vids, :]
+    use_sub = sub is not None and sel is not None and not fresh_sdf
+    if use_sub:
+        def decode(xh_):
+            return body_vec_to_verts(
+                sub["smplx"], assets.vposer, xh_, cam_ext,
+                precision=cfg.lbs_precision, joints_direct=sub["joints_direct"],
+            )[0]
+    else:
+        def decode(xh_):
+            return body_vec_to_verts(
+                assets.smplx, assets.vposer, xh_, cam_ext,
+                precision=cfg.lbs_precision, fused_bundle=fused_bundle,
+            )[0]
+
+    if cfg.remat_decode:
+        # keep xh only; the backward pass runs the decode (K1 on the fused tier) again
+        verts = checkpoint(decode, xh, use_reentrant=False, preserve_rng_state=False)
+    else:
+        verts = decode(xh)
+    contact_verts = verts[:, : sub["n_contact"], :] if use_sub else verts[:, assets.contact_vids, :]
 
     if sel is not None and not fresh_nn:
         y_nn = sel[0]
@@ -108,13 +155,16 @@ def _per_body_losses(
     dims = tuple(assets.sdf_packed.shape[1:4])
     if sel is not None and not fresh_sdf:
         sdf_cache = sel[1]
+        coll_verts = verts[:, sub["n_contact"]:, :] if use_sub else verts
         body_sdf = sdf_trilinear_from_cache(
-            sdf_cache, scene_idx, verts, assets.grid_mins, assets.grid_maxs, dims
+            sdf_cache, scene_idx, coll_verts, assets.grid_mins, assets.grid_maxs, dims
         )
     elif cfg.refresh_every > 1:
         body_sdf, (corners, base) = sdf_trilinear_packed_cached(
             assets.sdf_packed, scene_idx, verts, assets.grid_mins, assets.grid_maxs
         )
+        if sub is not None:  # carry only the rows the subset's cheap passes read
+            corners, base = corners[:, sub["coll_rows"]], base[:, sub["coll_rows"]]
         sdf_cache = (corners.detach(), base.detach())
     else:
         body_sdf = sdf_trilinear_packed(
@@ -183,19 +233,78 @@ class Adam:
         return x + (-self.lr) * update
 
 
+N_SCORE = 64  # bodies whose penetration picks the subset's second half
+
+
+def _build_subset(assets: SceneAssets, cfg: FitConfig, x72_now, cam_ext, scene_idx, fused_bundle) -> Dict:
+    """The vertex subset of FitConfig.cheap_collision_verts, picked from the
+    population's state after the warm-up.
+
+    Half of the row budget is a stride-uniform cover of the mesh. The other
+    half goes to the rows that carry the most penetration mass over the first
+    ``N_SCORE`` bodies, decoded once at ``cfg.lbs_precision`` (the collision
+    gradient flows only from penetrating vertices, so a uniform subset alone
+    would miss pockets between full passes). Equal masses, all the vertices
+    that penetrate nowhere among them, are taken lowest row first. The halves
+    are concatenated as they are: a row can stand in both. A budget of V or
+    more selects every vertex."""
+    V = assets.smplx.num_verts
+    dev = assets.smplx.v_template.device
+    s = min(cfg.cheap_collision_verts, V)
+    if s >= V:
+        coll_ids = torch.arange(V, dtype=torch.int64, device=dev)
+    else:
+        s_stride = s // 2
+        stride_ids = torch.from_numpy(
+            np.unique(np.round(np.linspace(0, V - 1, s_stride)).astype(np.int64))
+        ).to(dev)
+        n_score = min(N_SCORE, x72_now.shape[0])
+        verts0 = body_vec_to_verts(
+            assets.smplx, assets.vposer, x72_now[:n_score], cam_ext[:n_score],
+            precision=cfg.lbs_precision, fused_bundle=fused_bundle,
+        )[0]
+        sdf0 = sdf_trilinear_packed(
+            assets.sdf_packed, scene_idx[:n_score], verts0, assets.grid_mins, assets.grid_maxs
+        )
+        pen_mass = torch.sum(torch.minimum(sdf0, sdf0.new_zeros(())), dim=0)  # [V], <= 0
+        # a stable sort: torch.topk promises no order among equal values
+        pen_ids = torch.sort(-pen_mass, descending=True, stable=True).indices[: s - s_stride]
+        coll_ids = torch.cat([stride_ids, pen_ids])
+    rows = torch.cat([assets.contact_vids.to(torch.int64), coll_ids])
+    sub_model, jd = smplx_vertex_subset(assets.smplx, rows)
+    return {
+        "smplx": sub_model,
+        "joints_direct": jd,
+        "n_contact": int(assets.contact_vids.shape[0]),
+        "rows": rows,
+        "coll_rows": coll_ids,
+    }
+
+
+class _Chunk:
+    """One chunk of the population: its slice, iterate, Adam and carried state."""
+
+    def __init__(self, lo: int, hi: int, xhr_init: torch.Tensor, lr: float):
+        self.lo, self.hi = lo, hi
+        self.xhr = xhr_init[lo:hi].clone()
+        self.adam = Adam(self.xhr, lr)
+        self.sel = None
+
+
 def _fit_program(cfg: FitConfig, want_metrics: bool = True) -> Callable:
     """fit(assets, x72_init [N, 72], cam_ext [N, 4, 4], scene_idx [N]) ->
     (x72 [N, 72], final per-body metrics or None, loss_hist [num_iter, N]).
 
     loss_hist[i] is each body's total at iteration i, before its update.
     want_metrics=False skips the final full loss pass, which only reports
-    metrics; the fitted bodies are the same either way."""
+    metrics (at full-vertex semantics, whatever subset the cheap passes
+    used); the fitted bodies are the same either way."""
     if cfg.lbs_precision not in LBS_PRECISIONS:
         raise ValueError(f"lbs_precision must be one of {LBS_PRECISIONS}, got {cfg.lbs_precision!r}")
-    for knob, off in (("cheap_collision_verts", 0), ("overlap_chunks", 1), ("remat_decode", False)):
-        if getattr(cfg, knob) not in (off, None):
-            raise NotImplementedError(f"FitConfig.{knob}={getattr(cfg, knob)!r} is not ported yet")
     kinds = fit_schedule(cfg)
+    w = min(cfg.refresh_warmup, cfg.num_iter)
+    # the iteration before which the vertex subset is built, or None
+    subset_at = w if cfg.refresh_every > 1 and cfg.cheap_collision_verts > 0 and cfg.num_iter > w else None
 
     def fit(assets: SceneAssets, x72_init, cam_ext, scene_idx):
         scene_idx = scene_idx.to(torch.int64)
@@ -203,35 +312,52 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True) -> Callable:
             xhr_init = convert_to_6D_rot(x72_init)
             # the fused kernels' constant operands: once per fit call
             bundle = make_fused_bundle(assets.smplx) if cfg.lbs_precision == "fused" else None
+            sub = None
 
-            def loss_fn(x, sel=None, fresh_nn=None, fresh_sdf=None):
+            def loss_fn(lo, hi, x, sel=None, fresh_nn=None, fresh_sdf=None):
                 return _per_body_losses(
-                    assets, x, xhr_init, cam_ext, scene_idx, cfg, sel, fresh_nn, fresh_sdf, bundle
+                    assets, x, xhr_init[lo:hi], cam_ext[lo:hi], scene_idx[lo:hi], cfg,
+                    sel, fresh_nn, fresh_sdf, sub, bundle,
                 )
 
-            xhr = xhr_init.clone()
-            adam = Adam(xhr, cfg.init_lr_h)
-            sel = None
+            n = xhr_init.shape[0]
+            # overlap_chunks needs equal chunks; otherwise the batched program
+            C = max(1, int(cfg.overlap_chunks or 1))
+            if n % C:
+                C = 1
+            chunks = [_Chunk(n * ci // C, n * (ci + 1) // C, xhr_init, cfg.init_lr_h) for ci in range(C)]
             hist = []
-            for kind in kinds:
-                x = xhr.detach().requires_grad_(True)
-                with torch.enable_grad():
-                    if kind == "full":
-                        loss, (metrics, new_sel) = loss_fn(x)
-                    else:
-                        loss, (metrics, new_sel) = loss_fn(
-                            x, sel, fresh_nn=kind == "nn_only", fresh_sdf=False
-                        )
-                    (g,) = torch.autograd.grad(loss, x)
-                xhr = adam.step(xhr, g)
-                if kind != "cheap":
-                    sel = new_sel
-                hist.append(metrics["total"].detach())
+            for it, kind in enumerate(kinds):
+                if it == subset_at:
+                    x_now = torch.cat([c.xhr for c in chunks]) if C > 1 else chunks[0].xhr
+                    sub = _build_subset(assets, cfg, convert_to_3D_rot(x_now), cam_ext, scene_idx, bundle)
+                    for c in chunks:
+                        if c.sel is not None:  # the warm-up carried every vertex's cells
+                            y_nn, (corners, base) = c.sel
+                            c.sel = (y_nn, (corners[:, sub["coll_rows"]], base[:, sub["coll_rows"]]))
+                totals = []
+                for c in chunks:
+                    x = c.xhr.detach().requires_grad_(True)
+                    with torch.enable_grad():
+                        if kind == "full":
+                            loss, (metrics, new_sel) = loss_fn(c.lo, c.hi, x)
+                        else:
+                            loss, (metrics, new_sel) = loss_fn(
+                                c.lo, c.hi, x, c.sel, fresh_nn=kind == "nn_only", fresh_sdf=False
+                            )
+                        (g,) = torch.autograd.grad(loss, x)
+                    c.xhr = c.adam.step(c.xhr, g)
+                    if kind != "cheap":
+                        c.sel = new_sel
+                    totals.append(metrics["total"].detach())
+                hist.append(totals[0] if C == 1 else torch.cat(totals))
             loss_hist = torch.stack(hist)
+            xhr = chunks[0].xhr if C == 1 else torch.cat([c.xhr for c in chunks])
             x72 = convert_to_3D_rot(xhr)
             if not want_metrics:
                 return x72, None, loss_hist
-            _, (final, _) = loss_fn(xhr)
+            sub = None  # the reported losses are the reference's, over every vertex
+            _, (final, _) = loss_fn(0, n, xhr)
             return x72, {k: v.detach() for k, v in final.items()}, loss_hist
 
     return fit
@@ -265,3 +391,170 @@ def make_generate_fit_step(
         return fit(assets, x72, cam_ext, scene_idx)
 
     return run
+
+
+def make_generate_fit_rows(model: Model, assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True) -> Callable:
+    """``make_generate_fit_step`` for a coalesced batch of snapshots: row r
+    of the population is sampled for snapshot ``req_idx[r]`` and refined.
+
+    Returns run(xs_stack [R, H, W, 2], cam_int_stack [R, 3, 3], max_d_stack
+    [R], req_idx [P], cam_ext_rows [P, 4, 4], sidx_rows [P], generator=None,
+    eps=None) -> (x72 [P, 72], metrics, hist)."""
+    fit = _fit_program(cfg, want_metrics=want_metrics)
+
+    def run(xs_stack, cam_int_stack, max_d_stack, req_idx, cam_ext_rows, sidx_rows, generator=None, eps=None):
+        x72 = generate_bodies_rows(model, xs_stack, cam_int_stack, max_d_stack, req_idx,
+                                   generator=generator, eps=eps)
+        return fit(assets, x72, cam_ext_rows, sidx_rows)
+
+    return run
+
+
+def fit_bodies(assets: SceneAssets, x72_init, cam_ext, scene_idx, cfg: Optional[FitConfig] = None):
+    """One-shot convenience wrapper around ``make_fit_step``."""
+    return make_fit_step(assets, cfg or FitConfig())(x72_init, cam_ext, scene_idx)
+
+
+def make_fit_step_carry_opt_state(assets: SceneAssets, cfg: FitConfig) -> Callable:
+    """The reference's quirk: ONE Adam state shared serially across bodies.
+
+    The reference builds a single Adam optimizer per scene and loops over the
+    body files, resetting only the parameter per body while the moments and
+    the bias-correction step count run on (fitting_proxe.py:73-74,175). This
+    mode does exactly that, so that the quirk's effect can be measured
+    against the fresh-state default: a serial loop over bodies at batch 1, a
+    full pass every iteration whatever ``refresh_every`` says, then one
+    population-wide metrics pass. Not a production path.
+
+    Returns fit(x72_init [N, 72], cam_ext [N, 4, 4], scene_idx [N]) ->
+    (x72 [N, 72], final per-body metrics): two values, no loss history."""
+    if cfg.lbs_precision not in LBS_PRECISIONS:
+        raise ValueError(f"lbs_precision must be one of {LBS_PRECISIONS}, got {cfg.lbs_precision!r}")
+
+    def fit(x72_init, cam_ext, scene_idx):
+        scene_idx = scene_idx.to(torch.int64)
+        with strict_f32(), torch.no_grad():
+            xhr_init_all = convert_to_6D_rot(x72_init)
+            bundle = make_fused_bundle(assets.smplx) if cfg.lbs_precision == "fused" else None
+            adam = Adam(xhr_init_all[0:1], cfg.init_lr_h)
+            fitted = []
+            for b in range(xhr_init_all.shape[0]):
+                xhr_init1, cam1, sidx1 = xhr_init_all[b : b + 1], cam_ext[b : b + 1], scene_idx[b : b + 1]
+                xhr = xhr_init1.clone()
+                for _ in range(cfg.num_iter):
+                    x = xhr.detach().requires_grad_(True)
+                    with torch.enable_grad():
+                        loss, _ = _per_body_losses(assets, x, xhr_init1, cam1, sidx1, cfg, fused_bundle=bundle)
+                        (g,) = torch.autograd.grad(loss, x)
+                    xhr = adam.step(xhr, g)
+                fitted.append(xhr)
+            xhr_all = torch.cat(fitted)
+            _, (final, _) = _per_body_losses(
+                assets, xhr_all, xhr_init_all, cam_ext, scene_idx, cfg, fused_bundle=bundle
+            )
+            return convert_to_3D_rot(xhr_all), {k: v.detach() for k, v in final.items()}
+
+    return fit
+
+
+class FittingOP:
+    """File-driven fit with the reference's pickle IO (fitting_proxe.py:
+    167-263): reads ``body_gen_*.pkl`` dicts, fits the whole population in
+    one call per chunk, writes the refined pickles.
+
+    Runs on the first card unless ``device`` says otherwise; ``assets`` must
+    live on the same device. cam_post: an optional 4x4 right-composed onto
+    every cam_ext before the fit (the Habitat driver's axis flip,
+    fitting_habitat.py:177-184). Populations over ``max_population`` are
+    fitted in chunks of exactly that size, the last one padded by repeating
+    its last row (the padding's results are dropped), so every chunk has one
+    shape."""
+
+    def __init__(
+        self,
+        assets: SceneAssets,
+        cfg: FitConfig,
+        scene_idx: int,
+        verbose: bool = False,
+        max_population: int = 512,
+        cam_post: Optional[np.ndarray] = None,
+        device=None,
+    ):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("FittingOP runs on an NVIDIA card; pass device='cpu' to fit on the CPU")
+            device = torch.device("cuda", 0)
+        self.assets = assets
+        self.cfg = cfg
+        self.scene_idx = scene_idx
+        self.verbose = verbose
+        self.max_population = max_population
+        self.cam_post = None if cam_post is None else np.asarray(cam_post, np.float32).reshape(4, 4)
+        self.device = torch.device(device)
+        self._fit = make_fit_step(assets, cfg)
+
+    def _fit_arrays(self, x72: np.ndarray, cam_ext: np.ndarray):
+        """One fit call: numpy in, numpy out (x72, metrics, hist)."""
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
+        scene_idx = torch.full((x72.shape[0],), self.scene_idx, dtype=torch.int64, device=self.device)
+        x_fitted, metrics, hist = self._fit(to(x72), to(cam_ext), scene_idx)
+        return x_fitted.cpu().numpy(), {k: v.cpu().numpy() for k, v in metrics.items()}, hist.cpu().numpy()
+
+    def fit_population(self, x72: np.ndarray, cam_ext: np.ndarray) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """x72 [n, 72], cam_ext [n, 4, 4] -> (fitted x72 [n, 72], per-body
+        final metrics). With ``verbose``, a population that fits one call
+        prints its mean loss per iteration."""
+        n = x72.shape[0]
+        if self.cam_post is not None:
+            cam_ext = np.asarray(cam_ext, np.float32) @ self.cam_post
+        if n <= self.max_population:
+            x_fitted, metrics, hist = self._fit_arrays(x72, cam_ext)
+            if self.verbose:
+                for ii, row in enumerate(hist):
+                    print(f"[INFO][fitting] iter={ii:d}, mean_total={float(row.mean()):f}")
+            return x_fitted, metrics
+
+        cap = self.max_population
+        outs, mets = [], []
+        for lo in range(0, n, cap):
+            chunk, cams = x72[lo : lo + cap], cam_ext[lo : lo + cap]
+            keep = chunk.shape[0]
+            if keep < cap:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], cap - keep, 0)], 0)
+                cams = np.concatenate([cams, np.repeat(cams[-1:], cap - keep, 0)], 0)
+            x_fitted, metrics, _ = self._fit_arrays(chunk, cams)
+            outs.append(x_fitted[:keep])
+            mets.append({k: v[:keep] for k, v in metrics.items()})
+        return np.concatenate(outs, axis=0), {k: np.concatenate([m[k] for m in mets], axis=0) for k in mets[0]}
+
+    def fitting_files(self, gen_dir: str, fit_dir: str, max_files: int = 1200) -> int:
+        """Read ``body_gen_{i:06d}.pkl`` for i < max_files from ``gen_dir``,
+        fit them together and write the results under the same names to
+        ``fit_dir``. Inputs that are missing and outputs that exist are
+        skipped, so a second call resumes (fitting_proxe.py:257-260).
+        Returns the number fitted."""
+        items = []
+        for ii in range(max_files):
+            inp = os.path.join(gen_dir, f"body_gen_{ii:06d}.pkl")
+            out = os.path.join(fit_dir, f"body_gen_{ii:06d}.pkl")
+            if not os.path.exists(inp) or os.path.exists(out):
+                continue
+            with open(inp, "rb") as f:
+                items.append((ii, pickle.load(f)))
+        if not items:
+            return 0
+
+        x72 = np.concatenate([body_params_parse(d).numpy() for _, d in items], axis=0)
+        # the reference's files hold cam_ext tiled [n_samples, 4, 4]: row 0
+        cam_ext = np.concatenate(
+            [np.asarray(d["cam_ext"], np.float32).reshape(-1, 4, 4)[:1] for _, d in items]
+        )
+        x_fitted, _ = self.fit_population(x72, cam_ext)
+
+        os.makedirs(fit_dir, exist_ok=True)
+        for (ii, d), rec in zip(items, body_params_encapsulate_list(x_fitted)):
+            rec["cam_ext"] = np.asarray(d["cam_ext"])
+            rec["cam_int"] = np.asarray(d.get("cam_int"))
+            with open(os.path.join(fit_dir, f"body_gen_{ii:06d}.pkl"), "wb") as f:
+                pickle.dump(rec, f)
+        return len(items)

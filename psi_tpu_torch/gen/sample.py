@@ -1,6 +1,7 @@
 """Generation: sample body populations for scene snapshots.
 
-Port of ``psi_tpu.gen.sample``'s sampling functions: encode the snapshot
+Port of ``psi_tpu.gen.sample`` (reference source/test_proxe_s1.py:31-134,
+test_proxe_s2.py, test_habitat_s{1,2}.py): encode the snapshot
 once, broadcast the feature over the population, sample the CVAE prior
 (``HumanCVAES1``, or ``HumanCVAES2``'s chained global and local priors),
 convert 6D -> axis-angle and recover the metric global translation.
@@ -8,7 +9,8 @@ convert 6D -> axis-angle and recover the metric global translation.
 coalesced batch of snapshots with one body per population row, and
 ``generate_bodies_line`` a latent line sweep. All three run the model in
 eval mode (running BatchNorm statistics) whatever mode it was left in, and
-restore that mode.
+restore that mode. ``TestOP`` is the file-writing driver on top of
+``generate_bodies``: it emits the reference's ``body_gen_{i:06d}.pkl``.
 
 Latents come from ``generator`` (on the model's device) unless ``eps`` is
 given: a tensor [N, eps_d] for ``HumanCVAES1``, a pair (eps_g, eps_l) of
@@ -18,11 +20,14 @@ given: a tensor [N, eps_d] for ``HumanCVAES1``, a pair (eps_g, eps_l) of
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple, Union
+import os
+import pickle
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from psi_tpu_torch.geometry.bodyvec import convert_to_3D_rot
+from psi_tpu_torch.geometry.bodyvec import body_params_encapsulate_list, convert_to_3D_rot
 from psi_tpu_torch.geometry.camera import recover_global_T
 from psi_tpu_torch.models.cvae_s1 import HumanCVAES1
 from psi_tpu_torch.models.cvae_s2 import HumanCVAES2
@@ -109,3 +114,67 @@ def generate_bodies_line(
     vals = torch.arange(-z_range, z_range, 2.0 * z_range / n_samples, dtype=torch.float32, device=xs.device)
     eps = vals[:n_samples, None].expand(n_samples, model.eps_d).contiguous()
     return generate_bodies(model, xs, cam_int, max_d, n_samples, eps=eps), eps
+
+
+class TestOP:
+    """Generation driver that writes the reference's pickles
+    (test_proxe_s1.py:31-134). ``model`` is a HumanCVAES1 or a HumanCVAES2.
+
+    Runs on the first card unless ``device`` says otherwise; the model is
+    moved there. One generator on that device, seeded with ``seed``, supplies
+    the latents of every call that injects none."""
+
+    __test__ = False  # a driver named after the reference's, not a test class
+
+    def __init__(self, model: Model, n_samples: int = 300, seed: int = 0, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("TestOP runs on an NVIDIA card; pass device='cpu' to generate on the CPU")
+            device = torch.device("cuda", 0)
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.n_samples = n_samples
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    @classmethod
+    def from_checkpoint(cls, model: Model, ckpt_dir: str, n_samples: int = 300, seed: int = 0, device=None) -> "TestOP":
+        """``model`` with the weights of the newest ``epoch-*.ckp`` under
+        ``ckpt_dir``; raises FileNotFoundError when there is none. The
+        checkpoint's optimizer moments and training noise stream go into a
+        throwaway state: generation keeps its own seeded generator."""
+        from psi_tpu_torch.train.checkpoint import load_newest_checkpoint
+        from psi_tpu_torch.train.loop import TrainState, make_optimizer
+
+        op = cls(model, n_samples=n_samples, seed=seed, device=device)
+        scratch = TrainState(op.model, make_optimizer(op.model, 0.0), 0, torch.Generator(device=op.device))
+        if load_newest_checkpoint(ckpt_dir, scratch) is None:
+            raise FileNotFoundError(f"no epoch-*.ckp under {ckpt_dir}")
+        return op
+
+    def generate(self, batch: Dict[str, np.ndarray], generator: Optional[torch.Generator] = None,
+                 eps: Eps = None) -> torch.Tensor:
+        """batch: one test snapshot (xs [1, H, W, 2], cam_int [1, 3, 3] or
+        [3, 3], max_d [1]) as numpy arrays -> [n_samples, 72] on the device."""
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
+        if eps is None and generator is None:
+            generator = self.generator
+        return generate_bodies(
+            self.model, to(batch["xs"]), to(batch["cam_int"]).reshape(1, 3, 3), to(batch["max_d"]).reshape(1),
+            self.n_samples, generator=generator, eps=eps,
+        )
+
+    def test(self, batch: Dict[str, np.ndarray], output_dir: str, scene_name: str, idx_offset: int = 900) -> int:
+        """Write ``n_samples`` pickles for the snapshot into
+        ``output_dir/scene_name``, numbered from ``idx_offset`` (the
+        reference's +900, test_proxe_s1.py:131), each with the snapshot's
+        ``cam_ext`` and ``cam_int`` attached. Returns the count."""
+        xh = self.generate(batch)
+        outdir = os.path.join(output_dir, scene_name)
+        os.makedirs(outdir, exist_ok=True)
+        recs = body_params_encapsulate_list(xh.cpu().numpy())
+        for ii, rec in enumerate(recs):
+            rec["cam_ext"] = np.asarray(batch["cam_ext"])
+            rec["cam_int"] = np.asarray(batch["cam_int"])
+            with open(os.path.join(outdir, f"body_gen_{ii + idx_offset:06d}.pkl"), "wb") as f:
+                pickle.dump(rec, f)
+        return len(recs)

@@ -3,9 +3,8 @@
 The fields, defaults and constructors are psi_tpu's, unchanged, so one
 ``FitConfig`` drives both packages in the parity tests (reference:
 source/train_s1.py:345-423). The comments describe what each field
-selects; fields the port does not run yet are rejected by the code that
-reads them (``fit/fitting.py``). psi_tpu's copy carries the TPU-side
-measurements behind each default.
+selects in this package; every ``FitConfig`` field is honoured by
+``fit/fitting.py``.
 """
 
 from __future__ import annotations
@@ -101,8 +100,12 @@ class FitConfig:
     # search, selected tile-granularly over the Morton-ordered scene
     # cloud (ops/prune.py::select_near_tiles). 0 = the full cloud.
     prune_scene_points: int = 2048
-    # rematerialize the VPoser-decode -> LBS chain in the backward pass
-    # instead of storing its residuals (not ported: raises)
+    # recompute the VPoser-decode -> LBS chain in the backward pass instead
+    # of keeping its residuals (torch.utils.checkpoint around the decode).
+    # The fitted bodies are the same; on the fused tier each pass launches
+    # the forward kernel a second time. On the H100 this is slower than the
+    # default and saves almost no memory (PERF.md section 6, the knobs): kept
+    # for parity of configs, not a setting to tune with.
     remat_decode: bool = False
     # selection-refresh mode (refresh_every > 1): a FULL loss pass (NN
     # search over the pruned cloud, packed-grid SDF gather per vertex)
@@ -130,13 +133,25 @@ class FitConfig:
     # iteration-0 cell cache for collision (the nn_only pass kind). Only
     # consulted when refresh_every > 1.
     sdf_warmup_gathers: bool = False
-    # Vertex-subset cheap iterations: K > 0 decodes only the contact
-    # vertices plus a K-vertex subset on cached-SDF iterations. 0 = every
-    # vertex (reference semantics). Opt-in; not ported: raises.
+    # Vertex-subset cheap iterations: K > 0 decodes, on the passes after
+    # the warm-up that read the carried SDF cells, only the contact
+    # vertices plus K collision rows (half a uniform stride over the mesh,
+    # half the rows with the most penetration over the first 64 bodies
+    # after the warm-up), through the 'fast' einsums; the collision term
+    # averages over the K rows. Full passes and the final metrics keep
+    # every vertex. 0 = every vertex on every pass (reference semantics);
+    # K >= the vertex count selects every row. Changes the iterates: opt-in.
+    # On the H100 the fit is bound by the host's launches, not by rows, and
+    # this buys no time (PERF.md section 6, the knobs): not a setting to tune
+    # with before the fit's launches are replayed from a CUDA graph.
     cheap_collision_verts: int = 0
-    # Split the population into C independent chunks inside every fit
-    # iteration so an XLA scheduler can overlap them; per-body results are
-    # unchanged. 1 disables. Not ported: values above 1 raise.
+    # Step the population as C equal chunks inside every fit iteration,
+    # each with its own Adam moments and carried state; per-body results
+    # are the batched program's. The chunks run one after the other (C
+    # times the launches of an iteration). 1 disables; a population that C
+    # does not divide runs as one chunk. On the H100 every C > 1 is slower
+    # than the default, about in step with the launches (PERF.md section 6,
+    # the knobs): kept for parity of configs, not a setting to tune with.
     overlap_chunks: int = 1
 
     @classmethod

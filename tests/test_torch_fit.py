@@ -38,7 +38,7 @@ from psi_tpu.geometry.bodyvec import convert_to_3D_rot as j_to_3d
 from psi_tpu.geometry.camera import recover_global_T as j_recover
 from psi_tpu.models import HumanCVAES1 as JCVAE
 from psi_tpu.utils.config import FitConfig as JFitConfig
-from psi_tpu_torch.fit.fitting import Adam, fit_schedule, make_fit_step, make_generate_fit_step
+from psi_tpu_torch.fit.fitting import Adam, fit_schedule, make_generate_fit_step
 from psi_tpu_torch.utils.config import FitConfig
 from psi_tpu_torch.utils.convert_jax import (
     SMPLX_FIELDS,
@@ -191,13 +191,6 @@ def test_production_schedule_at_20_iterations():
     assert fit_schedule(FitConfig.exact(num_iter=5)) == ["full"] * 5
     assert fit_schedule(FitConfig.production(num_iter=6, sdf_warmup_gathers=True, refresh_every=3,
                                              refresh_warmup=2)) == ["full", "full", "full", "cheap", "cheap", "full"]
-
-
-@pytest.mark.parametrize("knob", [dict(cheap_collision_verts=64), dict(overlap_chunks=2), dict(remat_decode=True)])
-def test_unported_fit_knobs_raise(world, knob):
-    _, ta = world["assets"]["bf16"]
-    with pytest.raises(NotImplementedError):
-        make_fit_step(ta, FitConfig.production(**knob))
 
 
 def test_adam_matches_optax():
