@@ -100,6 +100,29 @@ and then the training path and the Stage-2 sampler:
               its own scene) and the carried-Adam mode at N=4 (serial:
               N x 20 passes at one body).
 
+ and then the serving path:
+
+ 15. serve    GenerationEngine (population 256, FitConfig.production(
+              num_iter=20), max_requests 16, on the card by default) for the
+              s1 and the s2 model on phase 6's assets: seconds of warmup() per
+              program; generate(fit=True) with launch counts 20/20/6 and bodies
+              equal in bits to make_generate_fit_step's on the same latents,
+              generate(fit=False) 0/0/0 and equal to generate_bodies;
+              generate_coalesced of 8 requests x 32 rows (8 snapshots, scenes
+              and max_d) 20/20/6 and equal in bits to make_generate_fit_rows,
+              and of 5 + 7 + 11 rows (233 padding rows, never returned); a
+              ServingQueue burst of 8 threads x 32 fitted rows inside a 0.25-s
+              linger (fewer than 8 program calls); a ServingRouter over both
+              models serving two 256-row fitted requests submitted at the same
+              moment, equal in bits to two fresh engines with the same seeds
+              serving them one after the other, the TF32 flags as before; a
+              20-s soak through scripts/soak_serve.py (3 clients, rows from
+              {1, 4, 16, 64}, 70% fitted, a 60-request malformed storm: 0
+              errors, every malformed future failed, no growth of device
+              memory); python3 -m psi_tpu_torch.cli.serve as a child process
+              answering a 600-body fitted request in three chunks; the time
+              of make_fused_bundle, which every fitted call rebuilds.
+
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
 result. The last three lines are the per-kernel JSON, the nvidia-smi
@@ -1061,6 +1084,257 @@ def check_knobs(dev, model, assets, x72_init, cam_ext, scene_idx, kernels, sens_
     return out
 
 
+SERVE_MAX_REQUESTS = 16
+SERVE_BURST = 8  # client threads of the queue burst, and requests of the full coalesced call
+SERVE_LINGER_S = 0.25
+SERVE_SOAK_S = 20.0
+SERVE_STORM = 60
+SERVE_BUCKET_S = 5.0
+# serve, device memory between programs: nothing a request allocates outlives it, so the idle reading
+#     after the soak and the last bucket's least reading may exceed the first's only by what the caching
+#     allocator's bookkeeping of a new block size could add: a few MB of ~250 held.
+SERVE_MEM_TOL_MB = 8.0
+SERVE_CLI_BODIES = 600
+SERVE_PART_ROWS = 100  # a request for fewer rows than the population: the rest is dropped
+
+
+def check_serve(dev, model, assets, batch, cam_ext, kernels, want, smi: str):
+    """Phase 15: the serving path through its entry points; returns its record."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.body.smplx_model import make_fused_bundle
+    from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator
+    from psi_tpu_torch.fit.fitting import make_generate_fit_rows, make_generate_fit_step
+    from psi_tpu_torch.gen.sample import generate_bodies
+    from psi_tpu_torch.models.cvae_s2 import HumanCVAES2
+    from psi_tpu_torch.scripts import soak_serve
+    from psi_tpu_torch.serve import GenerationEngine, ServingQueue, ServingRouter
+    from psi_tpu_torch.utils.config import FitConfig
+    from psi_tpu_torch.utils.init import seeded_init_
+    from psi_tpu_torch.utils.precision import strict_f32
+    from psi_tpu_torch.utils.timing import cuda_ms
+
+    cfg = FitConfig.production(num_iter=NUM_ITER)
+    zero = want_launches(kernels, 0, 0, 0)
+    model2 = seeded_init_(HumanCVAES2(latentD_g=MODEL_KW["latentD"], latentD_l=MODEL_KW["latentD"],
+                                      image_size=MODEL_KW["image_size"]), SEED).eval().to(dev)
+    models = {"s1": model, "s2": model2}
+    out = {}
+
+    def engine(mt, seed):
+        e = GenerationEngine(models[mt], assets, population=N_BODIES, fit_cfg=cfg, seed=seed,
+                             max_requests=SERVE_MAX_REQUESTS)  # no device given: the card
+        if e.device != dev:
+            raise AssertionError("GenerationEngine did not default to the card")
+        return e
+
+    tf32_before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+    # ---- warmup, program by program
+    engines = {mt: engine(mt, SEED + 50) for mt in models}
+    out["warmup_s"] = {mt: {p: e.warmup(programs=(p,)) for p in e.WARMUP_PROGRAMS} for mt, e in engines.items()}
+    for mt, w in out["warmup_s"].items():
+        log(f"[serve] warmup of the {mt} engine, seconds per program: " + ", ".join(f"{p} {t:.3f}" for p, t in w.items())
+            + f"; all four {sum(w.values()):.3f} s; on {smi}")
+    eng = engines["s1"]
+
+    # ---- one request alone: the snapshot of phase 6, placed in the floor
+    snap = {k: batch[k] for k in ("xs", "cam_int", "max_d")}
+    snap["cam_ext"] = cam_ext[:1].cpu().numpy()
+    xs, cam_int, max_d = (torch.from_numpy(batch[k]).to(dev) for k in ("xs", "cam_int", "max_d"))
+    scene_idx = torch.zeros(N_BODIES, dtype=torch.int64, device=dev)
+    eps = torch.randn((N_BODIES, model.eps_d), generator=torch.Generator().manual_seed(SEED + 51)).to(dev)
+    res, launches, wall, _ = counted(kernels, lambda: eng.generate(snap, fit=True, scene_idx=0, eps=eps))
+    check_launches("[serve] generate(fit=True)", launches, want)
+    out["launches_single_fit"] = launches
+    direct = make_generate_fit_step(model, assets, cfg, N_BODIES, want_metrics=False)
+    x_direct, _, hist = direct(xs, cam_int.reshape(1, 3, 3), max_d.reshape(1), cam_ext[:1].expand(N_BODIES, 4, 4).contiguous(),
+                               scene_idx, eps=eps)
+    same = np.array_equal(res.bodies, x_direct.cpu().numpy())
+    loss0, loss_last = hist[0].mean().item(), hist[-1].mean().item()
+    single_fit_s = res.latency_s
+    log(f"[serve] generate(fit=True) N={N_BODIES}: {res.latency_s:.4f} s end to end ({N_BODIES / res.latency_s:.2f} bodies/s), "
+        f"launches {launches}; bodies equal in bits make_generate_fit_step's on the same latents: {same}; mean loss of that "
+        f"program {loss0:.6f} -> {loss_last:.6f}; on {smi}")
+    if not (same and res.fitted and res.bodies.shape == (N_BODIES, 72) and np.isfinite(res.bodies).all() and loss_last < loss0):
+        raise AssertionError("[serve] the fitted request is not make_generate_fit_step's, or its loss does not fall")
+    res0, launches0, _, _ = counted(kernels, lambda: eng.generate(snap, n_samples=SERVE_PART_ROWS, fit=False, eps=eps))
+    check_launches("[serve] generate(fit=False)", launches0, zero)
+    same0 = np.array_equal(res0.bodies, generate_bodies(model, xs, cam_int, max_d, N_BODIES, eps=eps)[:SERVE_PART_ROWS].cpu().numpy())
+    log(f"[serve] generate(fit=False), {SERVE_PART_ROWS} of {N_BODIES} rows: {res0.latency_s * 1e3:.2f} ms end to end, launches {launches0}; "
+        f"equal in bits to generate_bodies' first {SERVE_PART_ROWS}: {same0}")
+    if not (same0 and not res0.fitted and res0.bodies.shape == (SERVE_PART_ROWS, 72)):
+        raise AssertionError("[serve] the generate-only request is not generate_bodies'")
+    out.update(single_fit_s=single_fit_s, single_generate_s=res0.latency_s, single_fit_bit_equal=same,
+               loss_first=loss0, loss_last=loss_last)
+
+    # ---- a full coalesced call: 8 requests x 32 rows, each with its own snapshot, camera, scene and max_d
+    per = N_BODIES // SERVE_BURST
+    b = SyntheticBatchGenerator(num_scenes=ASSET_KW["num_scenes"], batches_per_epoch=1, seed=SEED + 52,
+                                image_size=MODEL_KW["image_size"]).next_batch(SERVE_BURST)
+    reqs = [{"batch": {k: b[k][i:i + 1] for k in ("xs", "cam_int", "cam_ext", "max_d")}, "n_samples": per,
+             "scene_idx": int(b["scene_idx"][i])} for i in range(SERVE_BURST)]
+    results, launches, wall, _ = counted(kernels, lambda: eng.generate_coalesced(reqs, fit=True, eps=eps))
+    check_launches("[serve] generate_coalesced(fit=True)", launches, want)
+    out["launches_coalesced_fit"] = launches
+    # the same call by hand: the engine's 16 slots (the unused ones zero images, identity intrinsics, max_d 6)
+    R = SERVE_MAX_REQUESTS
+    xs_stack = np.zeros((R,) + b["xs"].shape[1:], np.float32)
+    cam_int_stack = np.tile(np.eye(3, dtype=np.float32)[None], (R, 1, 1))
+    max_d_stack = np.full((R,), 6.0, np.float32)
+    xs_stack[:SERVE_BURST], cam_int_stack[:SERVE_BURST], max_d_stack[:SERVE_BURST] = b["xs"], b["cam_int"], b["max_d"]
+    req_idx = np.repeat(np.arange(SERVE_BURST), per)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows = make_generate_fit_rows(model, assets, cfg, want_metrics=False)
+    x_rows, _, _ = rows(to(xs_stack), to(cam_int_stack), to(max_d_stack), to(req_idx), to(b["cam_ext"][req_idx]),
+                        to(b["scene_idx"][req_idx].astype(np.int64)), eps=eps)
+    got = np.concatenate([r.bodies for r in results])
+    same_rows = np.array_equal(got, x_rows.cpu().numpy())
+    log(f"[serve] generate_coalesced(fit=True), {SERVE_BURST} requests x {per} rows, {SERVE_BURST} snapshots: "
+        f"{results[0].latency_s:.4f} s ({N_BODIES / results[0].latency_s:.2f} bodies/s), launches {launches}; equal in bits to "
+        f"make_generate_fit_rows on the same latents: {same_rows}")
+    if not (same_rows and all(r.bodies.shape == (per, 72) and r.batch_size == SERVE_BURST and r.fitted for r in results)):
+        raise AssertionError("[serve] the coalesced call is not make_generate_fit_rows'")
+    ragged = (5, 7, 11)
+    few = eng.generate_coalesced([dict(r, n_samples=n) for r, n in zip(reqs, ragged)], fit=True)
+    finite = all(np.isfinite(r.bodies).all() for r in few)
+    log(f"[serve] generate_coalesced(fit=True) of {ragged} rows ({N_BODIES - sum(ragged)} padding rows): shapes "
+        f"{[r.bodies.shape for r in few]}, every returned row finite: {finite}; {few[0].latency_s:.4f} s")
+    if not (finite and [r.bodies.shape for r in few] == [(n, 72) for n in ragged] and all(r.batch_size == 3 for r in few)):
+        raise AssertionError("[serve] the ragged coalesced call returned other rows than it was asked for")
+    out.update(coalesced_fit_s=results[0].latency_s, coalesced_fit_bit_equal=same_rows, ragged_fit_s=few[0].latency_s)
+
+    # ---- the queue: 8 clients, one 32-row fitted request each, inside one linger window
+    def together(fns):
+        """Each fn in its own thread, released at once; their results in order."""
+        gate, got = threading.Barrier(len(fns)), [None] * len(fns)
+
+        def work(i):
+            gate.wait(60)
+            got[i] = fns[i]()
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(fns))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        return got
+
+    q = ServingQueue(eng, linger_s=SERVE_LINGER_S)
+    burst = together([lambda r=r: q.submit(r["batch"], n_samples=per, fit=True, scene_idx=r["scene_idx"]).result(timeout=300)
+                      for r in reqs])
+    q.stop()
+    stats = q.stats()
+    log(f"[serve] ServingQueue, {SERVE_BURST} threads x one {per}-row fitted request, linger {SERVE_LINGER_S} s: "
+        f"{stats['batches']} program calls for {stats['requests']} requests, batch sizes {[r.batch_size for r in burst]}; "
+        f"latency p50 {stats['latency_p50_s']:.4f} s p99 {stats['latency_p99_s']:.4f} s (linger included; a single request "
+        f"alone {single_fit_s:.4f} s)")
+    if not (stats["requests"] == SERVE_BURST and stats["batches"] < SERVE_BURST and any(r.batch_size > 1 for r in burst)
+            and stats["latency_p50_s"] <= stats["latency_p99_s"]
+            and all(r.bodies.shape == (per, 72) and np.isfinite(r.bodies).all() for r in burst)):
+        raise AssertionError(f"[serve] the burst did not coalesce: {stats}")
+    out["burst"] = {"batches": stats["batches"], "batch_sizes": [r.batch_size for r in burst],
+                    "p50_s": stats["latency_p50_s"], "p99_s": stats["latency_p99_s"]}
+
+    # ---- concurrent equals serial: s1 and s2 each serve one full population at the same moment
+    seeds = {"s1": SEED + 60, "s2": SEED + 61}
+    full = {mt: reqs[i] for i, mt in enumerate(models)}
+    router = ServingRouter({mt: engine(mt, seeds[mt]) for mt in models}, linger_s=0.005)
+    t0 = time.time()
+    conc = together([lambda mt=mt: router.submit(full[mt]["batch"], n_samples=None, fit=True, scene_idx=full[mt]["scene_idx"],
+                                                 model=mt).result(timeout=300) for mt in models])
+    conc_s = time.time() - t0
+    router.stop()
+    serial, serial_s = [], 0.0
+    for mt in models:
+        sq = ServingQueue(engine(mt, seeds[mt]), linger_s=0.005)
+        t0 = time.time()
+        serial.append(sq.submit(full[mt]["batch"], n_samples=None, fit=True, scene_idx=full[mt]["scene_idx"]).result(timeout=300))
+        serial_s += time.time() - t0
+        sq.stop()
+    equal = [np.array_equal(a.bodies, c.bodies) for a, c in zip(conc, serial)]
+    diffs = [float(np.abs(a.bodies - c.bodies).max()) for a, c in zip(conc, serial)]
+    tf32_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    with strict_f32():
+        inside = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    log(f"[serve] ServingRouter, s1 and s2 each one {N_BODIES}-row fitted request at the same moment: {conc_s:.4f} s for both "
+        f"(one after the other on fresh engines with the same seeds: {serial_s:.4f} s); bodies equal in bits {equal} "
+        f"(max |diff| {diffs}); TF32 flags (matmul, cuDNN) before the phase {tf32_before}, after {tf32_after}, inside "
+        f"strict_f32 {inside}")
+    if not (all(equal) and tf32_after == tf32_before and inside == (False, False)
+            and all(r.bodies.shape == (N_BODIES, 72) and r.batch_size == 1 for r in conc)):
+        raise AssertionError("[serve] two models served at once differ from the same two served in turn, or TF32 leaked")
+    out["concurrent"] = {"concurrent_s": conc_s, "serial_s": serial_s, "bit_equal": equal, "tf32": list(tf32_after)}
+
+    # ---- a short soak
+    soak = soak_serve.run(eng, duration=SERVE_SOAK_S, storm=SERVE_STORM, bucket_s=SERVE_BUCKET_S,
+                          log=lambda m: log(f"[serve soak] {m}"))
+    grew_idle = soak["device_after_mb"]["allocated"] - soak["device_before_mb"]["allocated"]
+    held = [b["device_mb"] for b in soak["buckets"] if b["device_mb"] is not None]  # the drain's bucket may have no reading
+    grew_buckets = held[-1] - held[0]
+    log(f"[serve] soak {soak['wall_s']:.1f} s: {soak['requests']} requests, {soak['errors']} errors, {soak['rows']} bodies "
+        f"({soak['bodies_per_s']:.2f} bodies/s served), {soak['requests_per_batch']:.2f} requests a program call; p50 "
+        f"{soak['p50_ms']:.1f} ms p99 {soak['p99_ms']:.1f} ms (fitted {soak['fit_p50_ms']:.1f} / {soak['fit_p99_ms']:.1f}, "
+        f"generate-only {soak['gen_p50_ms']:.1f} / {soak['gen_p99_ms']:.1f}); storm {soak['storm']}; device memory between "
+        f"programs: first bucket {held[0]:.2f} MB, last {held[-1]:.2f} MB "
+        f"({grew_buckets:+.2f}); idle before {soak['device_before_mb']['allocated']:.2f} MB, after "
+        f"{soak['device_after_mb']['allocated']:.2f} MB ({grew_idle:+.2f}; tol {SERVE_MEM_TOL_MB}); on {smi}")
+    if not (soak["errors"] == 0 and soak["storm"] == {"malformed": SERVE_STORM, "failed_cleanly": SERVE_STORM,
+                                                       "post_storm_ok": True}
+            and soak["requests"] > 0 and grew_idle <= SERVE_MEM_TOL_MB and grew_buckets <= SERVE_MEM_TOL_MB):
+        raise AssertionError(f"[serve] the soak failed: errors {soak['errors_sample']}, storm {soak['storm']}, device memory "
+                             f"{grew_idle:+.2f} / {grew_buckets:+.2f} MB")
+    out["soak"] = soak
+
+    # ---- the CLI as a child process
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        lines = "\n".join([json.dumps({"id": "big", "n_samples": SERVE_CLI_BODIES, "fit": True}),
+                           json.dumps({"id": "small", "n_samples": 32}), "stats", "quit"]) + "\n"
+        t0 = time.time()
+        child = subprocess.run([sys.executable, "-m", "psi_tpu_torch.cli.serve", "--synthetic", "--population", str(N_BODIES),
+                                "--out_dir", str(workdir / "out")], input=lines, capture_output=True, text=True,
+                               cwd=ROOT, timeout=600)
+        cli_s = time.time() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"[serve] the CLI exited with {child.returncode}: {child.stderr[-2000:]}")
+        recs = [json.loads(l) for l in child.stdout.strip().splitlines()]
+        ready, closing = recs[0], recs[-1]
+        chunks = [r for r in recs if r.get("id") == "big"]
+        small = [r for r in recs if r.get("id") == "small"]
+        sizes = [N_BODIES] * (SERVE_CLI_BODIES // N_BODIES) + [SERVE_CLI_BODIES % N_BODIES]
+        shapes = [np.load(r["out"]).shape for r in chunks + small]
+        log(f"[serve] python3 -m psi_tpu_torch.cli.serve --synthetic --population {N_BODIES} as a child process, {cli_s:.1f} s in "
+            f"all: ready after warmup {ready.get('warmup_s')} s ({ready.get('warmup_programs')}); a fitted request of "
+            f"{SERVE_CLI_BODIES} bodies in chunks {[r.get('n') for r in chunks]} at {[r.get('latency_s') for r in chunks]} s, final "
+            f"{[r.get('final') for r in chunks]}; 32 generate-only bodies at {[r.get('latency_s') for r in small]} s; files "
+            f"{shapes}; closing stats {closing}")
+        if not (ready.get("status") == "ready" and ready["models"] == ["s1"] and not any("error" in r for r in recs)
+                and [r["n"] for r in chunks] == sizes and [r["chunk"] for r in chunks] == list(range(len(sizes)))
+                and [r["final"] for r in chunks] == [False] * (len(sizes) - 1) + [True]
+                and all(r["n_chunks"] == len(sizes) for r in chunks)
+                and shapes == [(n, 72) for n in sizes] + [(32, 72)]
+                and sum("stats" in r for r in recs) == 2 and closing["stats"]["requests"] == len(sizes) + 1
+                and all(np.isfinite(np.load(r["out"])).all() for r in chunks + small)):
+            raise AssertionError(f"[serve] the CLI's records are not the expected ones: {recs}")
+        out["cli"] = {"wall_s": cli_s, "warmup_s": ready["warmup_s"], "chunk_latency_s": [r["latency_s"] for r in chunks],
+                      "generate_latency_s": small[0]["latency_s"], "stats": closing["stats"]}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- what every fitted call rebuilds (fit/fitting.py builds the bundle inside the fit)
+    with strict_f32(), torch.no_grad():
+        bundle_ms = cuda_ms(lambda: make_fused_bundle(assets.smplx))
+    out["make_fused_bundle_ms"] = bundle_ms
+    log(f"[serve] make_fused_bundle, rebuilt by every fitted call: {bundle_ms:.4f} ms a call, {100 * bundle_ms / 1e3 / single_fit_s:.2f}% "
+        f"of the single fitted request's {single_fit_s:.4f} s; on {smi}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1076,7 +1350,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-14 on card ``dev``; raises on the first failure."""
+    """Phases 1-15 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -1259,6 +1533,9 @@ def smoke(dev) -> None:
     # ---- 14. the fit's knobs, the coalesced sampler in front of the fit, the carried-Adam mode
     knobs = check_knobs(dev, model, assets, x72_pre, cam_ext, scene_idx, kernels, own[0], smi)
 
+    # ---- 15. the serving path: engine, queue, router, soak, the CLI as a child process
+    serve = check_serve(dev, model, assets, batch, cam_ext, kernels, want, smi)
+
     # ---- the record: each kernel with the launch count of its path's run
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
@@ -1271,7 +1548,9 @@ def smoke(dev) -> None:
     for row, k in zip(rows[:3], kernels):
         row["launches_by_path"] = {"generate_fit_s1": launches[k.name], "generate_fit_s2": s2["launches"][k.name],
                                    "fit_files": drivers["launches"][k.name],
-                                   "fit_cheap_subset": knobs["cheap_collision_verts"]["launches"][k.name]}
+                                   "fit_cheap_subset": knobs["cheap_collision_verts"]["launches"][k.name],
+                                   "serve_single_fit": serve["launches_single_fit"][k.name],
+                                   "serve_coalesced_fit": serve["launches_coalesced_fit"][k.name]}
     rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"])
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb},
@@ -1280,7 +1559,7 @@ def smoke(dev) -> None:
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,
-                    "knobs": knobs, "kernels_at_path_batches": path_batches}))
+                    "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """SMPL-X body model: the tensors, a synthetic asset, and the forwards.
 
 Port of ``psi_tpu.body.smplx_model``. ``SMPLXModel`` is a dataclass of
-constant tensors; ``smplx_forward`` runs the einsum LBS tiers and
+constant tensors; ``load_smplx_npz`` reads a SMPLX_{GENDER}.npz asset into
+one; ``smplx_forward`` runs the einsum LBS tiers and
 ``smplx_forward_fused`` runs the vertex path through the fused skinning
 kernel (K1 forward, K2 backward). ``synthetic_smplx`` builds, from a
 numpy seed, exactly the arrays psi_tpu's ``synthetic_smplx`` builds, so
@@ -70,6 +71,65 @@ def _build_pose_mean(num_joints, hands_mean_l, hands_mean_r, flat_hand_mean: boo
         pose_mean[-90:-45] = hands_mean_l
         pose_mean[-45:] = hands_mean_r
     return pose_mean
+
+
+def load_smplx_npz(
+    npz_path: str,
+    num_betas: int = 10,
+    num_pca_comps: int = 12,
+    num_expression_coeffs: int = 10,
+    flat_hand_mean: bool = False,
+    use_posedirs: bool = True,
+    device="cpu",
+) -> SMPLXModel:
+    """Load a SMPLX_{GENDER}.npz asset into an SMPLXModel.
+
+    Field semantics follow the smplx package (and the vendored
+    human_body_prior/body_model/body_model.py:34-185): shapedirs columns
+    [0:num_betas] are shape, [300:300+n_expr] are expression (when the
+    asset carries the 400-wide basis). posedirs [V, 3, (J-1)*9] is stored
+    flat and transposed, [(J-1)*9, V*3]; the root's parent, which the asset
+    stores as 2^32 - 1, becomes -1; the hand PCA bases are cut to
+    ``num_pca_comps`` rows and the hand means go into ``pose_mean`` unless
+    ``flat_hand_mean``.
+    """
+    data = np.load(npz_path, allow_pickle=True)
+    v_template = np.asarray(data["v_template"], dtype=np.float32)
+    shapedirs_all = np.asarray(data["shapedirs"], dtype=np.float32)
+    shapedirs = shapedirs_all[:, :, :num_betas]
+    exprdirs = None
+    if shapedirs_all.shape[-1] >= 300 + num_expression_coeffs:
+        exprdirs = shapedirs_all[:, :, 300 : 300 + num_expression_coeffs]
+
+    posedirs = None
+    if use_posedirs and "posedirs" in data:
+        pd = np.asarray(data["posedirs"], dtype=np.float32)  # [V, 3, (J-1)*9]
+        posedirs = pd.reshape(-1, pd.shape[-1]).T  # [(J-1)*9, V*3]
+
+    kintree = np.asarray(data["kintree_table"], dtype=np.int64)
+    parents = tuple(int(p) if p < 2**31 else -1 for p in kintree[0])
+    parents = (-1,) + parents[1:]
+
+    hands_l = np.asarray(data["hands_componentsl"], dtype=np.float32)[:num_pca_comps]
+    hands_r = np.asarray(data["hands_componentsr"], dtype=np.float32)[:num_pca_comps]
+    pose_mean = _build_pose_mean(
+        len(parents),
+        np.asarray(data["hands_meanl"], dtype=np.float32),
+        np.asarray(data["hands_meanr"], dtype=np.float32),
+        flat_hand_mean,
+    )
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return SMPLXModel(
+        v_template=t(v_template), shapedirs=t(shapedirs), exprdirs=t(exprdirs), posedirs=t(posedirs),
+        J_regressor=t(np.asarray(data["J_regressor"], dtype=np.float32)),
+        lbs_weights=t(np.asarray(data["weights"], dtype=np.float32)),
+        hands_components_l=t(hands_l), hands_components_r=t(hands_r), pose_mean=t(pose_mean),
+        faces=t(np.asarray(data["f"], dtype=np.int64).reshape(-1, 3)),
+        parents=parents,
+    )
 
 
 def synthetic_smplx(

@@ -5,13 +5,15 @@ Copied from ``psi_tpu.data.scenes`` (numpy only): ``SceneRegistry``,
 arrays psi_tpu builds from the same seed. SDF grids of different dims are
 edge-padded to a common dim with grid_max rescaled (the voxel mapping is
 unchanged); point clouds are Morton-ordered and padded with far points
-(1e5) that never win a nearest-neighbour query. The readers of real
-scene files are not ported yet.
+(1e5) that never win a nearest-neighbour query. ``load_scene_registry``
+reads PROX-style scene files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -98,6 +100,43 @@ def build_registry(
         n_verts=n_verts,
         faces=list(faces_list) if faces_list is not None else None,
     )
+
+
+def _read_mesh_vertices(path: str):
+    """Read a triangle mesh (ply/obj). Uses open3d when present, else a
+    minimal binary/ascii PLY parser sufficient for PROX scene files."""
+    try:  # pragma: no cover - open3d is an optional dependency
+        import open3d as o3d
+
+        m = o3d.io.read_triangle_mesh(path)
+        return np.asarray(m.vertices), np.asarray(m.triangles)
+    except ImportError:
+        from psi_tpu_torch.data.plyio import read_ply
+
+        return read_ply(path)
+
+
+def load_scene_registry(
+    scene_verts_path: str,
+    scene_sdf_path: str,
+    scene_names: Sequence[str],
+    mesh_ext: str = ".ply",
+) -> SceneRegistry:
+    """Load PROX-style assets: {scene}.ply meshes + {scene}.json /
+    {scene}_sdf.npy SDFs (reference batch_gen_hdf5.py:135-166)."""
+    verts_list, faces_list, sdf_list, mins, maxs = [], [], [], [], []
+    for name in scene_names:
+        verts, faces = _read_mesh_vertices(os.path.join(scene_verts_path, name + mesh_ext))
+        with open(os.path.join(scene_sdf_path, name + ".json")) as f:
+            sdf_data = json.load(f)
+        dim = sdf_data["dim"]
+        sdf = np.load(os.path.join(scene_sdf_path, name + "_sdf.npy")).reshape(dim, dim, dim)
+        verts_list.append(verts)
+        faces_list.append(faces)
+        sdf_list.append(sdf)
+        mins.append(np.asarray(sdf_data["min"], np.float32))
+        maxs.append(np.asarray(sdf_data["max"], np.float32))
+    return build_registry(scene_names, verts_list, sdf_list, mins, maxs, faces_list)
 
 
 def synthetic_scene_registry(

@@ -13,6 +13,14 @@ nothing, and returns ``cudaGetLastError()`` after its launches; a
 ``Kernel`` raises when that is not 0 and otherwise counts the launch.
 Nothing here runs when a module is imported: there is no ``nvcc`` on a
 CPU-only machine, and the CPU path never reaches this file.
+
+Threads: the build and the load are taken under one lock, so two threads
+that launch their first kernel together build once and load once, and the
+compiler writes to a temporary name no other thread or process can hold.
+A launch itself takes no lock. ``Kernel.launches`` is a plain integer
+raised without one: it is exact while one thread launches at a time (the
+serving engine holds its own lock around every program), which is how the
+checks that read it run.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -54,6 +64,7 @@ SIGNATURES: Dict[str, List] = {
 RESTYPES = {"psi_skin_fwd_workspace": ctypes.c_size_t, "psi_skin_bwd_workspace": ctypes.c_size_t}
 
 _library: Optional[ctypes.CDLL] = None
+_build_lock = threading.RLock()  # library() holds it around build_library()
 
 
 def find_nvcc() -> str:
@@ -89,34 +100,43 @@ def library_path() -> Path:
 
 def build_library() -> Path:
     """Compile csrc/*.cu into the hashed shared library unless it exists.
-    The compiler's output (ptxas resource usage) goes to ``<lib>.log``."""
+    The compiler's output (ptxas resource usage) goes to ``<lib>.log``.
+    One thread of a process builds at a time; the others find the file."""
     out = library_path()
-    if out.exists():
+    with _build_lock:
+        if out.exists():
+            return out
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # a name of its own: another process building the same sources never shares it
+        fd, tmp_name = tempfile.mkstemp(prefix=f"{out.stem}.", suffix=".tmp.so", dir=BUILD_DIR)
+        os.close(fd)
+        tmp = Path(tmp_name)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources() if s.suffix == ".cu"]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = out.with_suffix(".log")
+        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.chmod(tmp, 0o755)  # mkstemp made it 0600
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
         return out
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return out
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). Safe to call from
+    several threads at once: the first builds and loads, the rest wait."""
     global _library
     if _library is None:
-        lib = ctypes.CDLL(str(build_library()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = RESTYPES.get(name, ctypes.c_int)
-        _library = lib
+        with _build_lock:
+            if _library is None:  # checked again: another thread may have loaded it meanwhile
+                lib = ctypes.CDLL(str(build_library()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = RESTYPES.get(name, ctypes.c_int)
+                _library = lib
     return _library
 
 

@@ -60,12 +60,49 @@ def test_scripts_and_eval_load_without_jax():
 
 
 @pytest.mark.parametrize("script", ["profile_vmem_gather", "profile_gather", "profile_sdf", "profile_fit",
-                                    "tune_skin_fwd", "tune_gather_probes", "tune_chamfer_nn", "profile_train"])
+                                    "tune_skin_fwd", "tune_gather_probes", "tune_chamfer_nn", "profile_train",
+                                    "soak_serve", "bench_serve_gen"])
 def test_profiling_entry_points_fail_without_a_card(script):
     """A measurement never falls back to the CPU."""
     r = _run(["-m", f"psi_tpu_torch.scripts.{script}"], ROOT)
     assert r.returncode != 0
     assert "needs an NVIDIA card" in r.stdout + r.stderr
+
+
+def test_serving_modules_load_without_jax():
+    """The serving package, the CLI modules and the two serving scripts,
+    imported alone, leave jax, flax, optax and psi_tpu out of sys.modules."""
+    code = (
+        "import sys\n"
+        "import psi_tpu_torch.serve, psi_tpu_torch.serve.engine, psi_tpu_torch.cli, psi_tpu_torch.cli.common\n"
+        "import psi_tpu_torch.cli.serve, psi_tpu_torch.scripts.soak_serve, psi_tpu_torch.scripts.bench_serve_gen\n"
+        "import psi_tpu_torch.utils.convert_torch, psi_tpu_torch.data.plyio, psi_tpu_torch.data.hdf5\n"
+        "assert psi_tpu_torch.serve.__all__ == ['GenerationEngine', 'ServeResult', 'ServingQueue', 'ServingRouter']\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_serve_cli_help_runs_with_jax_blocked():
+    """``python -m psi_tpu_torch.cli.serve --help`` with every import of jax,
+    flax, optax or psi_tpu turned into an error: exit code 0 and the flags."""
+    code = (
+        "import runpy, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'psi_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "sys.argv = ['psi_tpu_torch.cli.serve', '--help']\n"
+        "runpy.run_module('psi_tpu_torch.cli.serve', run_name='__main__')\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+    for flag in ("--model", "--population", "--warmup", "--device", "--synthetic", "--lbs_precision"):
+        assert flag in r.stdout, flag
 
 
 def test_no_jax_or_psi_tpu_import_in_port_sources():

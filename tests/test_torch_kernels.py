@@ -531,6 +531,57 @@ def test_launch_binds_its_entry_point_once(card):
     assert gp.LANE_GATHER._entry is entry and gp.LANE_GATHER.launches == n + 1
 
 
+_TWO_THREADS = """
+import sys, threading
+from pathlib import Path
+import torch
+from psi_tpu_torch.ops import _cuda, chamfer, gather_probes as gp
+_cuda.BUILD_DIR = Path(sys.argv[1])  # empty: the first launch has to build
+dev = torch.device("cuda", 0)
+g = torch.Generator().manual_seed(0)
+x, y = torch.randn((3, 200, 3), generator=g).to(dev), torch.randn((3, 700, 3), generator=g).to(dev)
+t = torch.randn((300, 128), generator=g).to(dev)
+i = torch.randint(0, 300, (300, 128), generator=g, dtype=torch.int32).to(dev)
+gate, out = threading.Barrier(2), {}
+def first(name, fn):
+    gate.wait(60)
+    try:
+        out[name] = fn()
+    except BaseException as e:
+        out[name] = e
+threads = [threading.Thread(target=first, args=("k3", lambda: chamfer.nn_argmin(x, y))),
+           threading.Thread(target=first, args=("p1", lambda: gp.row_gather(t, i)))]
+[th.start() for th in threads]
+[th.join(600) for th in threads]
+torch.cuda.synchronize()
+for name, v in out.items():
+    if isinstance(v, BaseException):
+        raise v
+assert torch.equal(out["k3"], chamfer.nn_argmin_reference(x, y)), "K3 differs from its twin"
+assert torch.equal(out["p1"], gp.row_gather_reference(t, i)), "P1 differs from its twin"
+built = sorted(p.name for p in _cuda.BUILD_DIR.iterdir())
+assert [n for n in built if n.endswith(".so")] == [_cuda.library_path().name], built
+print("OK", chamfer.NN_ARGMIN.launches, gp.ROW_GATHER.launches)
+"""
+
+
+@pytest.mark.cuda
+def test_two_threads_launching_their_first_kernels_together_build_once(card, tmp_path):
+    """In a fresh process whose build directory is empty, one thread launches
+    K3 and another P1 at the same moment: the library is built once (no
+    temporary file is left and none was shared), both results equal their
+    twins. The repository's own build directory is not touched."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", _TWO_THREADS, str(tmp_path / "kernels")], cwd=root,
+                       capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "OK 1 1"
+
+
 @pytest.mark.cuda
 def test_probes_reject_operands_they_do_not_take(card):
     t, r = _table((8, 128), 8, card)
