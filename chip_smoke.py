@@ -123,6 +123,25 @@ and then the training path and the Stage-2 sampler:
               answering a 600-body fitted request in three chunks; the time
               of make_fused_bundle, which every fitted call rebuilds.
 
+ and then the reference's command-line entry points:
+
+ 16. cli      each main(argv) in this process, on the card by default, on
+              the CLI's synthetic assets (10475 verts, 55 joints, 4 scenes,
+              64^3 grids, 20k-point clouds, 1455 contact verts):
+              cli.train_s1 --synthetic (two epochs of 2 batches of 32, gates
+              open by resuming a checkpoint of the initial state marked
+              epoch 8 of 10; K3 once a step; writes epoch-000010.ckp) ->
+              cli.test_proxe_s1 --ckpt_dir on .mat snapshots written here
+              (300 bodies for each of 4 test scenes) -> cli.fitting_proxe
+              (its fitted pickles and launch counts equal in bits to
+              FittingOP.fitting_files on the same files) -> cli.eval
+              diversity and collision; cli.test_habitat on written
+              cam_/depth_/seg_*.npy dumps (2 rooms x 2 cameras x 64 bodies)
+              -> cli.fitting_habitat (50 iterations) -> cli.eval --dataset
+              habitat; python -m psi_tpu_torch.cli.fitting_proxe as a child
+              process. Launch counts and wall of each entry point; finite
+              scores.
+
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
 result. The last three lines are the per-kernel JSON, the nvidia-smi
@@ -1335,6 +1354,211 @@ def check_serve(dev, model, assets, batch, cam_ext, kernels, want, smi: str):
     return out
 
 
+CLI_TRAIN_BATCHES = 2  # batches an epoch of cli.train_s1 --synthetic; it trains two epochs
+CLI_SNAPSHOT_HW = (424, 512)  # depth/seg maps of the .mat snapshots, written here
+CLI_HABITAT_ROOMS = 2  # rooms of MP3D_ROOMS with written sensor dumps
+CLI_HABITAT_CAMS = 2  # cameras a room
+CLI_HABITAT_SAMPLES = 64  # bodies a camera: cli.test_habitat's default is 200
+CLI_HABITAT_HW = (480, 640)
+
+
+def write_cli_inputs(root: Path, rng):
+    """The files the entry points read, in the reference's formats: a PROX-E
+    ``snapshot_for_testing/<scene>_00/rec_000000.mat`` for each test scene
+    (scipy.io.savemat: raw depth and seg maps, the cam struct, a fitted
+    body) and Habitat ``cam_/depth_/seg_*.npy`` dumps (cam_*.npy a pickled
+    dict) for CLI_HABITAT_ROOMS rooms. Returns (proxe_root, dump_root)."""
+    import numpy as np
+    import scipy.io
+
+    from psi_tpu_torch.cli.fitting import MP3D_ROOMS
+    from psi_tpu_torch.data.hdf5 import PROX_TEST_SCENES
+
+    proxe_root, dump_root = root / "proxe", root / "habitat_dumps"
+    for scene in PROX_TEST_SCENES:
+        d = proxe_root / "snapshot_for_testing" / f"{scene}_00"
+        d.mkdir(parents=True)
+        h, w = CLI_SNAPSHOT_HW
+        ext = np.eye(4)
+        ext[:3, 3] = rng.uniform(-1.0, 1.0, 3)
+        body = {k: rng.normal(0.0, 0.3, (1, n)).astype(np.float32) for k, n in (
+            ("transl", 3), ("global_orient", 3), ("betas", 10), ("body_pose", 32),
+            ("left_hand_pose", 12), ("right_hand_pose", 12))}
+        scipy.io.savemat(str(d / "rec_000000.mat"), {
+            "depth": rng.uniform(0.5, 8.0, (h, w)).astype(np.float32),
+            "seg": rng.integers(0, 42, (h, w)).astype(np.float32),
+            "cam": {"intrinsic": np.array([[500.0, 0, w / 2], [0, 500.0, h / 2], [0, 0, 1]]), "extrinsic": ext},
+            "body": body})
+    for room in MP3D_ROOMS[:CLI_HABITAT_ROOMS]:
+        d = dump_root / room
+        d.mkdir(parents=True)
+        h, w = CLI_HABITAT_HW
+        for i in range(CLI_HABITAT_CAMS):
+            cam_ext = np.eye(4, dtype=np.float32)
+            cam_ext[:3, 3] = rng.uniform(-1.0, 1.0, 3)
+            f = max(h, w) / 2.0
+            cam_int = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]], np.float32)
+            np.save(d / f"depth_{i}.npy", rng.uniform(0.5, 8.0, (h, w)).astype(np.float32))
+            np.save(d / f"seg_{i}.npy", rng.integers(0, 42, (h, w)).astype(np.int32))
+            np.save(d / f"cam_{i}.npy", {"cam_ext": cam_ext, "cam_int": cam_int})
+    return proxe_root, dump_root
+
+
+def check_cli(dev, kernels, smi: str):
+    """Phase 16: the reference's entry points, each through its ``main(argv)``
+    in this process (so that the launch counts can be read around it), with
+    no --device: the card. train_s1 -> test_proxe_s1 -> fitting_proxe -> eval,
+    then test_habitat -> fitting_habitat -> eval, then fitting_proxe as a
+    child process. Returns the phase's record."""
+    import argparse
+    import contextlib
+    import io
+    import math
+    import pickle
+    import re
+
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.cli import eval as cli_eval
+    from psi_tpu_torch.cli import fitting_habitat, fitting_proxe, test_habitat, test_proxe_s1, train_s1
+    from psi_tpu_torch.cli.common import build_assets
+    from psi_tpu_torch.cli.fitting import MP3D_ROOMS
+    from psi_tpu_torch.data.hdf5 import PROX_TEST_SCENES
+    from psi_tpu_torch.fit.fitting import FittingOP
+    from psi_tpu_torch.train.checkpoint import save_checkpoint
+    from psi_tpu_torch.train.loop import init_state
+    from psi_tpu_torch.utils.config import FitConfig, TrainConfig
+
+    t_phase = time.time()
+    out = {"wall_s": {}, "launches": {}}
+
+    def run(name, fn, argv):
+        """fn(argv) with the counts set to 0 just before and read just after;
+        returns its standard output."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, launches, wall, _ = counted(kernels, lambda: fn(argv))
+        out["wall_s"][name], out["launches"][name] = wall, launches
+        log(f"[cli] {name} {' '.join(argv)}: {wall:.2f} s, launches {launches}")
+        return buf.getvalue()
+
+    def read_dir(folder: Path):
+        recs = {}
+        for p in sorted(folder.rglob("body_gen_*.pkl")):
+            with open(p, "rb") as f:
+                recs[str(p.relative_to(folder))] = pickle.load(f)
+        return recs
+
+    def same_bits(a, b) -> bool:
+        return a.keys() == b.keys() and all(
+            a[n].keys() == b[n].keys() and all(np.array_equal(a[n][k], b[n][k]) for k in a[n]) for n in a)
+
+    def scores(text: str):
+        return {k: float(v) for k, v in re.findall(r"(\w+)=(-?[\d.]+|nan|inf)", text)}
+
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        proxe_root, dump_root = write_cli_inputs(workdir, np.random.default_rng(SEED + 60))
+        ckpt, gen, fit, direct = (workdir / n for n in ("ckpt", "gen", "fit", "direct"))
+
+        # ---- train_s1 --synthetic: the gates open as open_gates_config opens them (a checkpoint of the
+        # initial state marked epoch 8 of 10: epochs 9 and 10 are past 0.75 * 10, so f_scene = 1 and
+        # fca = 1), and the end of epoch 10 is TrainConfig's saving_per_epochs: a checkpoint is written
+        save_checkpoint(str(ckpt), 8, init_state(TrainConfig(model_type="s1", seed=SEED), dev))
+        run("train_s1", train_s1.main, ["--synthetic", "--save_dir", str(ckpt), "--num_epoch", "10",
+                                        "--synthetic_batches", str(CLI_TRAIN_BATCHES)])
+        steps = 2 * CLI_TRAIN_BATCHES
+        rows = read_metrics(str(ckpt))
+        if not ((ckpt / "epoch-000010.ckp").exists() and len(rows) == steps
+                and all(math.isfinite(v) for r in rows for v in r.values())):
+            raise AssertionError(f"[cli] train_s1 wrote no epoch-10 checkpoint or not {steps} finite steps: {rows}")
+        if out["launches"]["train_s1"][kernels[2].name] != steps:
+            raise AssertionError(f"[cli] train_s1 launched K3 {out['launches']['train_s1']} times in {steps} steps")
+
+        # ---- test_proxe_s1 from that checkpoint, on the .mat snapshots
+        run("test_proxe_s1", test_proxe_s1.main, ["--ckpt_dir", str(ckpt), "--proxe_path", str(proxe_root),
+                                                  "--output_dir", str(gen)])
+        n_gen = len(read_dir(gen))
+        if n_gen != 300 * len(PROX_TEST_SCENES):
+            raise AssertionError(f"[cli] test_proxe_s1 wrote {n_gen} pickles")
+
+        # ---- fitting_proxe, then FittingOP.fitting_files on the same files: equal bits and counts
+        text = run("fitting_proxe", fitting_proxe.main, [str(gen), str(fit), "--synthetic"])
+        fitted = read_dir(fit)
+        args = argparse.Namespace(synthetic=True, proxe_path=None, device=None)
+        assets, registry = build_assets(args, sdf_dtype=torch.bfloat16, device=dev)
+        cfg = FitConfig(init_lr_h=0.1, num_iter=20, contact_denom_offset=0.01, weight_loss_rec=1.0,
+                        weight_loss_vposer=0.01, weight_contact=0.1, weight_collision=0.5, refresh_every=10,
+                        lbs_precision="fused", prune_scene_points=2048)
+
+        def fit_directly():
+            for si, scene in enumerate(PROX_TEST_SCENES):
+                FittingOP(assets, cfg, scene_idx=si % registry.num_scenes).fitting_files(
+                    str(gen / scene), str(direct / scene))
+
+        _, direct_launches, direct_s, _ = counted(kernels, fit_directly)
+        equal = same_bits(fitted, read_dir(direct))
+        log(f"[cli] FittingOP.fitting_files on the same files: {direct_s:.2f} s, launches {direct_launches}; "
+            f"{len(fitted)} fitted pickles, equal in bits to the CLI's: {equal}; {text.strip().splitlines()[-1]}")
+        if not (len(fitted) == n_gen and equal and direct_launches == out["launches"]["fitting_proxe"]):
+            raise AssertionError(f"[cli] fitting_proxe differs from FittingOP.fitting_files: {len(fitted)} files, "
+                                 f"equal bits {equal}, launches {out['launches']['fitting_proxe']} vs {direct_launches}")
+        if not all(v > 0 for v in out["launches"]["fitting_proxe"].values()):
+            raise AssertionError(f"[cli] fitting_proxe did not launch every kernel: {out['launches']['fitting_proxe']}")
+        if not all(np.isfinite(v).all() for r in fitted.values() for v in r.values()):
+            raise AssertionError("[cli] a fitted pickle is not finite")
+
+        # ---- eval on the fitted files
+        div = scores(run("eval_diversity", cli_eval.main, ["--results_dir", str(fit), "--mode", "diversity"]))
+        col = scores(run("eval_collision", cli_eval.main, ["--results_dir", str(fit), "--mode", "collision",
+                                                           "--synthetic"]))
+
+        # ---- the Habitat path on written sensor dumps, fewer bodies a camera than the default
+        log(f"[cli] test_habitat at --n_samples {CLI_HABITAT_SAMPLES} (default 200) over {CLI_HABITAT_ROOMS} rooms x "
+            f"{CLI_HABITAT_CAMS} cameras, to keep the phase short")
+        hab_gen, hab_fit = workdir / "hab_gen", workdir / "hab_fit"
+        run("test_habitat", test_habitat.main, ["--dump_root", str(dump_root), "--output_dir", str(hab_gen),
+                                                "--n_samples", str(CLI_HABITAT_SAMPLES)])
+        run("fitting_habitat", fitting_habitat.main, [str(hab_gen), str(hab_fit), "--synthetic"])
+        hab = read_dir(hab_fit)
+        per_room = CLI_HABITAT_CAMS * CLI_HABITAT_SAMPLES
+        names = sorted(hab)
+        if not (len(hab) == CLI_HABITAT_ROOMS * per_room and names[0] == f"{MP3D_ROOMS[0]}/body_gen_000000.pkl"
+                and names[per_room - 1] == f"{MP3D_ROOMS[0]}/body_gen_{per_room - 1:06d}.pkl"
+                and all(np.isfinite(v).all() for r in hab.values() for v in r.values())):
+            raise AssertionError(f"[cli] the habitat path fitted {len(hab)} pickles: {names[:2]} ... {names[-2:]}")
+        hab_col = scores(run("eval_collision_habitat", cli_eval.main, [
+            "--results_dir", str(hab_fit), "--mode", "collision", "--dataset", "habitat", "--synthetic"]))
+
+        # ---- the -m entry as a child process, on the card
+        t0 = time.time()
+        child = subprocess.run([sys.executable, "-m", "psi_tpu_torch.cli.fitting_proxe", str(gen),
+                                str(workdir / "fit_child"), "--synthetic"], capture_output=True, text=True,
+                               cwd=ROOT, timeout=600)
+        out["wall_s"]["fitting_proxe_child"] = time.time() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"[cli] python -m psi_tpu_torch.cli.fitting_proxe exited {child.returncode}: "
+                                 f"{child.stderr[-2000:]}")
+        child_fit = read_dir(workdir / "fit_child")
+        child_equal = same_bits(child_fit, fitted)
+        log(f"[cli] python -m psi_tpu_torch.cli.fitting_proxe as a child process: "
+            f"{out['wall_s']['fitting_proxe_child']:.2f} s, {len(child_fit)} pickles, equal in bits to the in-process "
+            f"CLI's: {child_equal}; {child.stdout.strip().splitlines()[-1]}")
+        if len(child_fit) != n_gen or not all(np.isfinite(v).all() for r in child_fit.values() for v in r.values()):
+            raise AssertionError(f"[cli] the child process fitted {len(child_fit)} pickles or not finite ones")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    values = {**div, **col, **{f"habitat_{k}": v for k, v in hab_col.items()}}
+    out.update(scores=values, child_equal_bits=child_equal, direct_launches=direct_launches, direct_s=direct_s)
+    out["phase_s"] = time.time() - t_phase
+    log(f"[cli] scores {values}; phase {out['phase_s']:.1f} s; on {smi}")
+    if not (len(values) == 6 and all(math.isfinite(v) for v in values.values())):
+        raise AssertionError(f"[cli] scores missing or not finite: {values}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1350,7 +1574,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-15 on card ``dev``; raises on the first failure."""
+    """Phases 1-16 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -1536,6 +1760,9 @@ def smoke(dev) -> None:
     # ---- 15. the serving path: engine, queue, router, soak, the CLI as a child process
     serve = check_serve(dev, model, assets, batch, cam_ext, kernels, want, smi)
 
+    # ---- 16. the reference's entry points: train, test_proxe, fitting, eval, test_habitat
+    cli = check_cli(dev, kernels, smi)
+
     # ---- the record: each kernel with the launch count of its path's run
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
@@ -1550,8 +1777,11 @@ def smoke(dev) -> None:
                                    "fit_files": drivers["launches"][k.name],
                                    "fit_cheap_subset": knobs["cheap_collision_verts"]["launches"][k.name],
                                    "serve_single_fit": serve["launches_single_fit"][k.name],
-                                   "serve_coalesced_fit": serve["launches_coalesced_fit"][k.name]}
-    rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"])
+                                   "serve_coalesced_fit": serve["launches_coalesced_fit"][k.name],
+                                   "cli_fitting_proxe": cli["launches"]["fitting_proxe"][k.name],
+                                   "cli_fitting_habitat": cli["launches"]["fitting_habitat"][k.name]}
+    rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"],
+                                       cli_train_s1=cli["launches"]["train_s1"][NN_ARGMIN.name])
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb},
                     "k1": {"stage_ms": k1["stage_ms"]},
@@ -1559,7 +1789,7 @@ def smoke(dev) -> None:
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,
-                    "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve}))
+                    "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve, "cli": cli}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -39,6 +39,10 @@ class SceneRegistry:
     def num_scenes(self) -> int:
         return len(self.names)
 
+    def index_of(self, name: str) -> int:
+        """The row of scene ``name``; ValueError for a name not in ``names``."""
+        return self.names.index(name)
+
 
 def _pad_sdf(sdf: np.ndarray, grid_min: np.ndarray, grid_max: np.ndarray, target_dim: int):
     """Edge-replicate pad a dim^3 grid to target_dim^3 and rescale grid_max

@@ -17,10 +17,9 @@ CPU-only machine, and the CPU path never reaches this file.
 Threads: the build and the load are taken under one lock, so two threads
 that launch their first kernel together build once and load once, and the
 compiler writes to a temporary name no other thread or process can hold.
-A launch itself takes no lock. ``Kernel.launches`` is a plain integer
-raised without one: it is exact while one thread launches at a time (the
-serving engine holds its own lock around every program), which is how the
-checks that read it run.
+A launch itself takes no lock; its count is raised under the kernel's own
+lock, so ``Kernel.launches`` stays exact while several threads launch (a
+router's workers, one a model).
 """
 
 from __future__ import annotations
@@ -149,9 +148,9 @@ def stream_of(t: torch.Tensor) -> int:
 class Kernel:
     """One hand-written kernel: its C entry point and its launch count.
 
-    ``launches`` is a plain integer, raised by one each time ``launch``
-    runs the kernel and its launch is accepted. Callers that want the
-    count of one run set it to 0 before and read it after.
+    ``launches`` is raised by one, under a lock, each time ``launch`` runs
+    the kernel and its launch is accepted. Callers that want the count of
+    one run set it to 0 before and read it after.
     """
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
@@ -161,6 +160,7 @@ class Kernel:
         self.replaces = replaces  # the Pallas kernel it ports, file:line
         self.launches = 0
         self._entry = None  # the bound C function, looked up at the first launch
+        self._count_lock = threading.Lock()
 
     def launch(self, device: torch.device, *args) -> None:
         entry = self._entry
@@ -173,7 +173,8 @@ class Kernel:
                 err = entry(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with cudaError {err}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:

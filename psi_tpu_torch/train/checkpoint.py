@@ -74,29 +74,40 @@ def load_newest_checkpoint(save_dir: str, state: Any) -> Optional[Dict[str, Any]
     """Restore the mtime-newest ``epoch-*.ckp`` into ``state`` in place.
 
     Returns {'epoch', 'state', 'path', 'batches_done'} or None when the
-    directory holds no checkpoint. A file with only ``model_h_state_dict``
-    and ``epoch`` (a reference checkpoint's weights) resumes with the
-    optimizer's moments, the step count and the generator as they are in
-    ``state``: fresh, unless the caller set them. The generator's state is
-    restored only on the kind of device it was saved on."""
+    directory holds no checkpoint. A file this module wrote (it carries
+    ``step`` and ``generator_state``) restores everything. Any other file is
+    taken as the reference's own layout (train_s1.py:306-310): its weights
+    and epoch are loaded, and its ``optimizer_h_state_dict``, whose moments
+    index the reference optimizer's parameters by position, is dropped, as
+    psi_tpu drops the torch moments (psi_tpu/train/checkpoint.py:70-79).
+    The optimizer's moments, the step count and the generator then stay as
+    they are in ``state``: fresh, unless the caller set them. The
+    generator's state is restored only on the kind of device it was saved
+    on."""
     paths = sorted(glob.glob(os.path.join(save_dir, "epoch-*.ckp")), key=os.path.getmtime)
     if not paths:
         return None
     payload = torch.load(paths[-1], map_location="cpu", weights_only=True)
     state.model.load_state_dict(payload["model_h_state_dict"])
-    if "optimizer_h_state_dict" in payload:
-        state.optimizer.load_state_dict(payload["optimizer_h_state_dict"])
-    if "generator_state" in payload:
-        if payload.get("generator_device") == state.generator.device.type:
-            state.generator.set_state(payload["generator_state"])
-        else:
-            # a CPU generator's state does not fit a card's, nor the reverse
-            logger.warning("checkpoint %s was written on %s: the noise stream starts afresh on %s",
-                           paths[-1], payload.get("generator_device"), state.generator.device.type)
-    state.step = int(payload.get("step", 0))
+    if not is_port_checkpoint(payload):
+        return {"epoch": int(payload.get("epoch", 0)), "state": state, "path": paths[-1], "batches_done": 0}
+    state.optimizer.load_state_dict(payload["optimizer_h_state_dict"])
+    if payload.get("generator_device") == state.generator.device.type:
+        state.generator.set_state(payload["generator_state"])
+    else:
+        # a CPU generator's state does not fit a card's, nor the reverse
+        logger.warning("checkpoint %s was written on %s: the noise stream starts afresh on %s",
+                       paths[-1], payload.get("generator_device"), state.generator.device.type)
+    state.step = int(payload["step"])
     return {
-        "epoch": int(payload.get("epoch", 0)),
+        "epoch": int(payload["epoch"]),
         "state": state,
         "path": paths[-1],
         "batches_done": int(payload.get("batches_done", 0)),
     }
+
+
+def is_port_checkpoint(payload: Dict[str, Any]) -> bool:
+    """Whether ``payload`` is a file ``save_checkpoint`` wrote: the
+    reference's layout holds no ``step`` and no ``generator_state``."""
+    return "step" in payload and "generator_state" in payload

@@ -105,6 +105,57 @@ def test_serve_cli_help_runs_with_jax_blocked():
         assert flag in r.stdout, flag
 
 
+CLI_ENTRY_POINTS = ["train", "train_s1", "train_s2", "test_proxe", "test_proxe_s1", "test_proxe_s2", "test_habitat",
+                    "fitting", "fitting_proxe", "fitting_habitat", "eval"]
+INGEST_MODULES = ["psi_tpu_torch.ops.resize", "psi_tpu_torch.data.preprocessing", "psi_tpu_torch.data.matfile",
+                  "psi_tpu_torch.data.hdf5"]
+
+
+def test_ingest_and_cli_modules_load_without_jax_h5py_or_scipy():
+    """The data ingest and the entry points, imported alone, leave jax,
+    flax, optax and psi_tpu out of sys.modules, and h5py and scipy too: the
+    functions that read an HDF5 or a .mat file import them."""
+    modules = INGEST_MODULES + [f"psi_tpu_torch.cli.{m}" for m in CLI_ENTRY_POINTS]
+    code = (
+        "import sys, importlib\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu', 'h5py', 'scipy'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+    walked = {m.name for m in pkgutil.walk_packages([str(PKG)], prefix="psi_tpu_torch.")}
+    assert set(modules) <= walked
+
+
+def test_cli_entry_points_help_runs_with_jax_blocked():
+    """``python -m psi_tpu_torch.cli.<name> --help`` for every entry point,
+    with every import of jax, flax, optax or psi_tpu an error: each prints
+    its usage with --device."""
+    code = (
+        "import contextlib, io, runpy, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'psi_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for name in {CLI_ENTRY_POINTS!r}:\n"
+        "    sys.argv = ['psi_tpu_torch.cli.' + name, 'gen', 'fit', '--help']\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            runpy.run_module('psi_tpu_torch.cli.' + name, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (name, e.code)\n"
+        "    assert 'usage:' in buf.getvalue() and '--device' in buf.getvalue(), name\n"
+        "    print('OK', name)\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.split() == [w for n in CLI_ENTRY_POINTS for w in ("OK", n)]
+
+
 def test_no_jax_or_psi_tpu_import_in_port_sources():
     offenders = [
         f"{p.relative_to(ROOT)}: {m.group(0).strip()}"

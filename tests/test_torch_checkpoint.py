@@ -95,3 +95,54 @@ def test_dir_name_is_psi_tpus_string():
     assert checkpoint_dir_name(*args, prefix="x") == j_checkpoint_dir_name(*args, prefix="x")
     assert "modelS1_batch32_epoch30_LR0.0003" in checkpoint_dir_name(*args)
     assert "modelS2" in checkpoint_dir_name("c", "s2", 8, 1, 0.1, 1, 1, 1, 1)
+
+
+def _reference_file(tmp_path, optimizer_state):
+    """A checkpoint in the reference's own layout, built as
+    tests/test_reference_ckpt.py builds one: the reference module's
+    state_dict, the epoch, and the reference optimizer's state."""
+    from tests.test_convert_full_model import _TorchCVAES1
+
+    tm = _TorchCVAES1(latentD=16)
+    opt = torch.optim.Adam(tm.parameters(), lr=1e-3)
+    if optimizer_state == "adam":  # one step: moments indexed by the reference module's parameter order
+        sum((p ** 2).sum() for p in tm.parameters()).backward()
+        opt.step()
+    payload = {"epoch": 12, "model_h_state_dict": tm.state_dict(),
+               "optimizer_h_state_dict": opt.state_dict() if optimizer_state == "adam" else {}}
+    torch.save(payload, str(tmp_path / "epoch-000012.ckp"))
+    return tm
+
+
+@pytest.mark.parametrize("optimizer_state", ["empty", "adam"])
+def test_reference_layout_file_loads_weights_and_epoch_only(tmp_path, optimizer_state):
+    """psi_tpu/train/checkpoint.py:70-79: a reference checkpoint resumes with
+    its weights and epoch; its torch Adam moments are dropped, not loaded by
+    position, and the step count and the noise stream stay fresh."""
+    tm = _reference_file(tmp_path, optimizer_state)
+    b = init_state(TrainConfig(model_type="s1", latentD=16), "cpu")  # the reference module's 128 x 128 input
+    before = torch.Generator().set_state(b.generator.get_state())
+    restored = load_newest_checkpoint(str(tmp_path), b)
+    assert restored["epoch"] == 12 and restored["batches_done"] == 0 and b.step == 0
+    ref = tm.state_dict()
+    assert all(torch.equal(ref[k], v) for k, v in b.model.state_dict().items())
+    assert b.optimizer.state_dict()["state"] == {}
+    assert torch.equal(torch.randn(4, generator=before), torch.randn(4, generator=b.generator))
+
+
+def test_port_file_is_told_apart_from_a_reference_file(tmp_path):
+    """A file save_checkpoint wrote carries the step and the generator's
+    state and resumes with its moments; a reference-layout file has neither."""
+    from psi_tpu_torch.train.checkpoint import is_port_checkpoint
+
+    a = _state()
+    _take_a_step(a)
+    port = torch.load(save_checkpoint(str(tmp_path / "port"), 2, a), weights_only=True)
+    _reference_file(tmp_path, "adam")
+    ref = torch.load(str(tmp_path / "epoch-000012.ckp"), weights_only=True)
+    assert is_port_checkpoint(port) and not is_port_checkpoint(ref)
+    b = _state(seed=4)
+    load_newest_checkpoint(str(tmp_path / "port"), b)
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    assert len(sb) == len(sa) > 0 and all(torch.equal(sa[i]["exp_avg"], sb[i]["exp_avg"]) for i in sa)
+    assert b.step == 1

@@ -615,3 +615,32 @@ def test_four_threads_load_the_kernel_library_once(monkeypatch, tmp_path):
     assert len(outputs) == 1 and len(loads) == 1
     assert all(lib is libs[0] for lib in libs) and isinstance(libs[0], FakeLibrary)
     assert libs[0].psi_nn_argmin.argtypes == _cuda.SIGNATURES["psi_nn_argmin"]
+
+
+def test_two_threads_launching_together_count_every_launch(monkeypatch):
+    """Kernel.launches is raised under the kernel's lock: two threads that
+    drive ``launch`` through a stub entry point N times each read 2N. (On
+    CPython with the GIL an unlocked ``+= 1`` on an int has not been seen to
+    lose an update, so this holds on the tree before the lock too; it is the
+    count a router's two workers read.)"""
+    import sys
+
+    from psi_tpu_torch.ops import _cuda
+
+    kernel = _cuda.Kernel("stub", "psi_stub", "psi_tpu_torch/csrc/none.cu", "none")
+    calls = []
+    kernel._entry = lambda *args: calls.append(args) or 0
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    device, n = torch.device("cuda", 0), 20000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        out = _together(2, lambda: [kernel.launch(device, 7) for _ in range(n)])
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(isinstance(o, Exception) for o in out)
+    assert kernel.launches == len(calls) == 2 * n and calls[0] == (7,)
+    kernel._entry = lambda *args: 3  # a refused launch is not counted
+    with pytest.raises(RuntimeError, match="cudaError 3"):
+        kernel.launch(device)
+    assert kernel.launches == 2 * n
