@@ -1559,6 +1559,295 @@ def check_cli(dev, kernels, smi: str):
     return out
 
 
+NATIVE_BATCHES = 4  # batches of TrainConfig().batch_size in the pack: one epoch
+NATIVE_METRIC_REL_TOL = TRAIN_RESUME_REL_TOL  # the same step twice in one process: only cuDNN's choice may differ
+# chamfer_nn_cpu vs K3: both evaluate (dx^2 + dy^2) + dz^2 in f32; a tie may pick another index, never
+#     another distance beyond f32 rounding of metre-scale coordinates
+NATIVE_DIST_TOL = 1e-5
+
+
+class _Recording:
+    """A batch generator that keeps every batch it hands out."""
+
+    def __init__(self, gen):
+        self.gen, self.served = gen, []
+
+    def has_next_batch(self):
+        return self.gen.has_next_batch()
+
+    def next_batch(self, batch_size):
+        b = self.gen.next_batch(batch_size)
+        if b is not None:
+            self.served.append(b)
+        return b
+
+    def reset(self):
+        self.gen.reset()
+
+
+def check_native(dev, assets, contact, y_pruned, smi: str, workdir: Path):
+    """Phase 17: the native batch loader in front of TrainOP; returns its record."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.data import native_loader as nl
+    from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator
+    from psi_tpu_torch.ops.chamfer import NN_ARGMIN, nn_argmin
+    from psi_tpu_torch.train.checkpoint import save_checkpoint
+    from psi_tpu_torch.train.loop import TrainOP, _stage_chunk, init_state, make_train_step
+    from psi_tpu_torch.utils.config import LossConfig, TrainConfig
+
+    out = {}
+    out["built_here"] = not nl.library_path().exists()
+    t0 = time.time()
+    lib_path = nl.build_library()
+    nl.get_lib()
+    out["build_s"] = time.time() - t0
+    log(f"[native] {'g++ built and loaded' if out['built_here'] else 'loaded the already built'} {lib_path.name} "
+        f"in {out['build_s']:.2f} s")
+
+    # chamfer_nn_cpu, the host twin, against K3 at the fit's shape for one body
+    x, y = contact[:1].contiguous(), y_pruned[:1].contiguous()
+    ik = nn_argmin(x, y)[0].cpu().numpy()
+    xh, yh = x[0].cpu().numpy(), y[0].cpu().numpy()
+    dh, ih = nl.chamfer_nn_cpu(xh, yh)
+    e = xh - yh[ik]
+    dk = (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1]) + e[:, 2] * e[:, 2]
+    out["chamfer_max_abs_err"] = float(np.abs(dk - dh).max())
+    out["chamfer_index_agree"] = float((ik == ih).mean())
+    log(f"[native] chamfer_nn_cpu vs K3 at {tuple(x.shape[:2]) + (y.shape[1],)}: squared distances max abs diff "
+        f"{out['chamfer_max_abs_err']:.3e} (tol {NATIVE_DIST_TOL}), indices equal for "
+        f"{100 * out['chamfer_index_agree']:.2f}%")
+    if not out["chamfer_max_abs_err"] <= NATIVE_DIST_TOL:
+        raise AssertionError("[native] chamfer_nn_cpu and K3 disagree")
+
+    # the reference HDF5's streams (row 0 a placeholder, then the samples), packed as hdf5_to_pack packs
+    # what data/hdf5.py::_load_streams reads from such a file (rows 1..n); the HDF5 file itself is written
+    # and read, and its pack held to psi_tpu's, by tests/test_torch_native_loader.py, where h5py is installed
+    cfg = TrainConfig(model_type="s1", epoch=9, save_dir=str(workdir / "native_run"), saving_per_epochs=100,
+                      verbose=False, seed=SEED)
+    n = NATIVE_BATCHES * cfg.batch_size
+    gen = SyntheticBatchGenerator(num_scenes=ASSET_KW["num_scenes"], batches_per_epoch=1, seed=SEED + 30,
+                                  image_size=MODEL_KW["image_size"])
+    src = gen.next_batch(n + 1)
+    rows = {k: v[1:] for k, v in src.items()}
+    t0 = time.time()
+    pack = nl.pack_dataset(str(workdir / "train.psipack"), rows["xs"][..., 0], rows["xs"][..., 1], rows["xh"],
+                           rows["cam_ext"], rows["cam_int"], rows["max_d"], rows["scene_idx"])
+    out["pack_s"] = time.time() - t0
+    loader = _Recording(nl.NativeBatchGenerator(pack, cfg.batch_size, seed=SEED))
+
+    # one epoch with both gates open: resume a checkpoint of the initial state marked epoch 8 of 9
+    save_checkpoint(cfg.save_dir, 8, init_state(cfg, dev))
+    op = TrainOP(cfg, LossConfig(), assets)  # no device given: the card
+    step_ms, inner = [], op.epoch_fn
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.time()
+        res = inner(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t) * 1e3)
+        return res
+
+    op.epoch_fn = timed
+    torch.cuda.synchronize()
+    NN_ARGMIN.launches = 0
+    t0 = time.time()
+    op.train(loader)
+    torch.cuda.synchronize()
+    out["epoch_s"] = time.time() - t0
+    out["k3_launches"] = NN_ARGMIN.launches
+    logged = read_metrics(cfg.save_dir)
+    loader.gen.close()
+    M = assets.scene_verts.shape[1]
+    if len(logged) != NATIVE_BATCHES or not all(math.isfinite(v) for r in logged for v in r.values()):
+        raise AssertionError(f"[native] expected {NATIVE_BATCHES} finite metric rows: {logged}")
+    if out["k3_launches"] != NATIVE_BATCHES or M != ASSET_KW["scene_points"]:
+        raise AssertionError(f"[native] K3 launched {out['k3_launches']} times in {NATIVE_BATCHES} steps at M={M}")
+    # every sample exactly once: each served body row is one of the pack's, and all of them appear
+    index = {r.tobytes(): i for i, r in enumerate(rows["xh"])}
+    served = [index[r.tobytes()] for b in loader.served for r in b["xh"]]
+    if sorted(served) != list(range(n)):
+        raise AssertionError("[native] the epoch did not serve every sample exactly once")
+    # the first batch as the arrays hold it, in the loader's order, through the same step from the same state
+    first = [index[r.tobytes()] for r in loader.served[0]["xh"]]
+    direct = {k: v[first] for k, v in rows.items()}
+    for k, v in loader.served[0].items():
+        if not np.array_equal(v, direct[k].astype(v.dtype)):
+            raise AssertionError(f"[native] the loader's {k} differs from the arrays' rows")
+    state = init_state(cfg, dev)
+    step = make_train_step(assets, LossConfig(), cfg.model_type, cfg.grad_clip_norm)
+    _, ref = step(state, {k: v[0] for k, v in _stage_chunk([direct], cfg.stage_bf16, dev).items()}, 1.0, 1.0)
+    rel = max(abs(logged[0][k] - ref[k].item()) / max(abs(ref[k].item()), 1e-12) for k in ref)
+    out.update(first_step_rel_diff=rel, step_ms=step_ms, median_step_ms=statistics.median(step_ms[1:]))
+    log(f"[native] TrainOP s1 on the card from NativeBatchGenerator, batch {cfg.batch_size}, one epoch of {n} "
+        f"samples (packed in {out['pack_s']:.3f} s): {len(logged)} steps, every metric finite, each sample served "
+        f"once, K3 {out['k3_launches']} launches at M={M}; loss {logged[0]['loss']:.6f} -> {logged[-1]['loss']:.6f}; "
+        f"first step's metrics vs the same rows from the arrays through make_train_step: max rel diff {rel:.3e} "
+        f"(tol {NATIVE_METRIC_REL_TOL}); {out['epoch_s']:.3f} s for the epoch, steps "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)} ms (median after the first {out['median_step_ms']:.3f} ms); "
+        f"library build {out['build_s']:.2f} s; on {smi}")
+    if not rel <= NATIVE_METRIC_REL_TOL:
+        raise AssertionError("[native] the first step's metrics differ from the same batch's")
+    return out
+
+
+DIST_TIMEOUT_S = 300  # both ranks of phase 18, from start to results; past it the phase fails
+DIST_REPS = 2  # runs of each call on the two ranks: the first in a fresh process pays its warm-up
+DIST_TRAIN_REL_TOL = 1e-5  # world size 1: gradients of the same step, only the backward's atomics may differ
+# two ranks: tests/test_multichip.py's bounds for the same comparison
+DIST_LOSS_REL_TOL, DIST_GRAD_REL_TOL, DIST_BN_TOL = 1e-5, 5e-3, 1e-5
+
+
+def _walls(walls) -> str:
+    return f"{walls[0]:.3f} s first, then " + ", ".join(f"{w:.3f}" for w in walls[1:]) + " s"
+
+
+def _grad_rel(a: dict, b: dict) -> float:
+    import torch
+
+    return max((torch.linalg.vector_norm((a[k] - b[k]).double()) /
+                (torch.linalg.vector_norm(b[k].double()) + 1e-12)).item() for k in b)
+
+
+def check_dist(dev, model, model_cpu, assets, assets_cpu, xs, cam_int, max_d, cam_ext, scene_idx, batch, kernels,
+               want, own_mean: float, smi: str, workdir: Path):
+    """Phase 18: the population-sharded fit, the sharded engine and data-parallel training, first over NCCL
+    at world size 1 in this process, then over gloo on two worker processes sharing the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator
+    from psi_tpu_torch.fit.fitting import make_generate_fit_step
+    from psi_tpu_torch.parallel.distributed import ensure_distributed
+    from psi_tpu_torch.parallel.mesh import make_mesh
+    from psi_tpu_torch.scripts import multiprocess_worker
+    from psi_tpu_torch.serve import GenerationEngine
+    from psi_tpu_torch.train.loop import TrainOP, _stage_chunk, init_state, make_train_step
+    from psi_tpu_torch.utils.config import FitConfig, LossConfig, TrainConfig
+
+    out = {}
+    cfg = FitConfig.production(num_iter=NUM_ITER)
+    tcfg = TrainConfig(model_type="s1", save_dir=str(workdir / "dist_train"), verbose=False, seed=SEED)
+    eps = torch.randn((N_BODIES, model.eps_d), generator=torch.Generator().manual_seed(SEED + 60))
+    eps_d = eps.to(dev)
+    tbatch = SyntheticBatchGenerator(num_scenes=ASSET_KW["num_scenes"], batches_per_epoch=1, seed=SEED + 61,
+                                     image_size=MODEL_KW["image_size"]).next_batch(tcfg.batch_size)
+    staged = {k: v[0] for k, v in _stage_chunk([tbatch], False, dev).items()}
+    snap = {k: batch[k] for k in ("xs", "cam_int", "max_d")}
+    snap["cam_ext"] = cam_ext[:1].cpu().numpy()
+    tol_mean = max(CROSS_MEAN_TOL, CROSS_SENS_FACTOR * own_mean)
+
+    # ---- 1. NCCL, world size 1, on this card, in this process
+    t0 = time.time()
+    ensure_distributed(init_method=f"file://{workdir}/nccl_store", num_processes=1, process_id=0, device=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        if mesh.backend != "nccl" or mesh.size != 1:
+            raise AssertionError(f"[dist] expected an NCCL group of 1, got {mesh}")
+        plain = make_generate_fit_step(model, assets, cfg, N_BODIES, want_metrics=False)
+        sharded = make_generate_fit_step(model, assets, cfg, N_BODIES, want_metrics=False, mesh=mesh)
+        args = (xs, cam_int, max_d, cam_ext, scene_idx)
+        (xu, _, hu), lu, wu, _ = counted(kernels, lambda: plain(*args, eps=eps_d))
+        (xm, _, hm), lm, wm, _ = counted(kernels, lambda: sharded(*args, eps=eps_d))
+        check_launches("[dist] NCCL world 1 generate+fit", lm, want)
+        check_launches("[dist] unsharded generate+fit", lu, want)
+        if not (torch.equal(xm, xu) and torch.equal(hm, hu)):
+            raise AssertionError("[dist] NCCL world size 1: the sharded generate+fit is not the unsharded one in bits")
+
+        def one_step(m):
+            op = TrainOP(tcfg, LossConfig(), assets, mesh=m) if m is not None else TrainOP(tcfg, LossConfig(), assets)
+            op.state, met = op.epoch_fn(op.state, {k: v[None] for k, v in staged.items()}, 1.0, 1.0)
+            return {k: v[0] for k, v in met.items()}, {n: p.grad.clone() for n, p in op.model.named_parameters()}
+
+        (mu, gu), (mu2, gu2), (mm, gm) = one_step(None), one_step(None), one_step(mesh)
+        metrics_equal = all(torch.equal(mm[k], mu[k]) for k in mu)
+        grads_equal = sum(torch.equal(gm[k], gu[k]) for k in gu)
+        rel_m, rel_u = _grad_rel(gm, gu), _grad_rel(gu2, gu)
+        out["nccl_world1"] = dict(launches=lm, fit_wall_s=wm, plain_fit_wall_s=wu, train_metrics_equal=metrics_equal,
+                                  grads_equal=grads_equal, n_grads=len(gu), grad_rel=rel_m, grad_rel_unsharded_twice=rel_u,
+                                  wall_s=time.time() - t0)
+        log(f"[dist] NCCL, world size 1, cuda:0: generate+fit N={N_BODIES} equal in bits to the unsharded call "
+            f"(bodies and loss history), launches {lm}; {wm:.4f} s vs {wu:.4f} s unsharded; TrainOP(mesh=) step at "
+            f"batch {tcfg.batch_size}: metrics equal in bits {metrics_equal}, gradients equal in bits {grads_equal} of "
+            f"{len(gu)}, largest relative difference {rel_m:.3e} (tol {DIST_TRAIN_REL_TOL}; two unsharded steps "
+            f"{rel_u:.3e}: the backward sums with atomics); on {smi}")
+        if not (metrics_equal and rel_m <= DIST_TRAIN_REL_TOL):
+            raise AssertionError("[dist] NCCL world size 1: the TrainOP(mesh=) step differs from the unsharded one")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 2. two ranks on this one card over gloo (NCCL refuses two ranks on one device)
+    t0 = time.time()
+    teps = torch.randn((tcfg.batch_size, model.eps_d), generator=torch.Generator().manual_seed(SEED + 63))
+    cpu = lambda t: t.detach().cpu()
+    spec_dir = workdir / "dist"
+    spec_dir.mkdir()
+    torch.save({"assets": assets_cpu, "model": model_cpu, "calls": [
+        dict(name="genfit", kind="generate_fit_step", cfg=cfg, n=N_BODIES, want_metrics=False,
+             args=tuple(cpu(a) for a in args), eps=eps, reps=DIST_REPS),
+        dict(name="engine", kind="engine", population=N_BODIES, fit_cfg=cfg, seed=SEED + 62,
+             requests=[("generate", dict(batch=snap, fit=True, scene_idx=0, eps=eps))], reps=DIST_REPS),
+        dict(name="train", kind="train_steps", train_cfg=tcfg, loss_cfg=LossConfig(), batches=[tbatch], eps=[teps],
+             reps=DIST_REPS),
+    ]}, spec_dir / "fit_spec.pt")
+    spec_s = time.time() - t0
+    ranks = multiprocess_worker.spawn(spec_dir, "fit", 2, device=f"cuda:{dev.index}", backend="gloo",
+                                      timeout_s=DIST_TIMEOUT_S)
+    workers_s = time.time() - t0 - spec_s
+    # the unsharded twins on the card, from the same inputs
+    eng = GenerationEngine(model, assets, population=N_BODIES, fit_cfg=cfg, seed=SEED + 62)
+    ref_engine = torch.from_numpy(eng.generate(snap, fit=True, scene_idx=0, eps=eps_d).bodies)
+    state = init_state(tcfg, dev)
+    _, ref_m = make_train_step(assets, LossConfig(), "s1")(state, staged, 1.0, 1.0, eps=teps.to(dev))
+    ref_g = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+    ref_bn = {k: v.cpu() for k, v in state.model.state_dict().items() if "running_" in k}
+    xu_c, hu_c = xu.cpu(), hu.cpu()
+    parts = []
+    for r, res in enumerate(ranks):
+        g, e, t = res["genfit"], res["engine"], res["train"]
+        check_launches(f"[dist] rank {r} generate+fit", g["launches"], want)
+        check_launches(f"[dist] rank {r} engine request", e["launches"], want)
+        check_launches(f"[dist] rank {r} train step", t["launches"], want_launches(kernels, 0, 0, 1))
+        d = (g["x72"] - xu_c).abs()
+        l0 = ((g["hist"][0] - hu_c[0]).abs() / hu_c[0].abs().clamp(min=1e-6)).max().item()
+        de = (torch.from_numpy(e["requests"][0][0]) - ref_engine).abs()
+        loss_rel = abs(t["metrics"][0]["loss"].item() - ref_m["loss"].item()) / abs(ref_m["loss"].item())
+        g_rel = _grad_rel(t["grads"], ref_g)
+        bn = max(((t["state_dict"][k] - v).abs() / (1 + v.abs())).max().item() for k, v in ref_bn.items())
+        parts.append(dict(fit_mean=d.mean().item(), fit_max=d.max().item(), iter0_rel=l0, engine_mean=de.mean().item(),
+                          engine_max=de.max().item(), loss_rel=loss_rel, grad_rel=g_rel, bn_diff=bn,
+                          launches={k: res[k]["launches"] for k in res}, walls_s={k: res[k]["walls_s"] for k in res}))
+        p = parts[-1]
+        if not (l0 <= CROSS_LOSS0_REL_TOL and p["fit_mean"] <= tol_mean and p["engine_mean"] <= tol_mean):
+            raise AssertionError(f"[dist] rank {r}: the sharded fit drifts beyond the fit's own sensitivity: {p}")
+        if not (loss_rel <= DIST_LOSS_REL_TOL and g_rel <= DIST_GRAD_REL_TOL and bn <= DIST_BN_TOL):
+            raise AssertionError(f"[dist] rank {r}: the data-parallel step differs from the unsharded one: {p}")
+    if not torch.equal(ranks[0]["genfit"]["x72"], ranks[1]["genfit"]["x72"]):
+        raise AssertionError("[dist] the two ranks returned different populations")
+    out["gloo_two_ranks"] = dict(ranks=parts, spec_s=spec_s, workers_s=workers_s, wall_s=time.time() - t0,
+                                 tol_mean=tol_mean)
+    for r, p in enumerate(parts):
+        log(f"[dist] gloo rank {r} of 2 on cuda:{dev.index}: generate+fit N={N_BODIES} ({N_BODIES // 2} rows a rank) "
+            f"launches {p['launches']['genfit']}, {_walls(p['walls_s']['genfit'])}; vs the unsharded call: iteration-0 "
+            f"loss {p['iter0_rel']:.3e} relative (tol {CROSS_LOSS0_REL_TOL}), fitted x72 mean {p['fit_mean']:.3e} "
+            f"(tol {tol_mean:.3e}: {CROSS_SENS_FACTOR} x the default's own drift for an input moved by "
+            f"{CROSS_PERTURB}, [knobs]) max {p['fit_max']:.3e}; GenerationEngine(mesh=) fitted request "
+            f"{p['launches']['engine']}, {_walls(p['walls_s']['engine'])}, mean {p['engine_mean']:.3e} max "
+            f"{p['engine_max']:.3e}; train step s1 batch {tcfg.batch_size} ({tcfg.batch_size // 2} a rank) "
+            f"{_walls(p['walls_s']['train'])}: loss {p['loss_rel']:.3e} relative (tol {DIST_LOSS_REL_TOL}), largest "
+            f"gradient relative norm {p['grad_rel']:.3e} (tol {DIST_GRAD_REL_TOL}), BatchNorm running statistics "
+            f"{p['bn_diff']:.3e} (tol {DIST_BN_TOL})")
+    log(f"[dist] two gloo ranks: spec written in {spec_s:.2f} s, both workers started, ran and returned in "
+        f"{workers_s:.2f} s (the phase {out['gloo_two_ranks']['wall_s']:.2f} s); the two ranks share one card, so "
+        f"no speed-up is measured or claimed; on {smi}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1574,7 +1863,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-16 on card ``dev``; raises on the first failure."""
+    """Phases 1-18 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -1763,6 +2052,15 @@ def smoke(dev) -> None:
     # ---- 16. the reference's entry points: train, test_proxe, fitting, eval, test_habitat
     cli = check_cli(dev, kernels, smi)
 
+    # ---- 17-18. the native batch loader; the sharded fit, the sharded engine and data-parallel training
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_scale_"))
+    try:
+        native = check_native(dev, assets, contact, y_pruned, smi, workdir)
+        dist_rec = check_dist(dev, model, model_cpu, assets, assets_cpu, xs, cam_int, max_d, cam_ext, scene_idx,
+                              batch, kernels, want, knobs["overlap_chunks"]["own_sensitivity_mean"], smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     # ---- the record: each kernel with the launch count of its path's run
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
@@ -1780,8 +2078,13 @@ def smoke(dev) -> None:
                                    "serve_coalesced_fit": serve["launches_coalesced_fit"][k.name],
                                    "cli_fitting_proxe": cli["launches"]["fitting_proxe"][k.name],
                                    "cli_fitting_habitat": cli["launches"]["fitting_habitat"][k.name]}
+        row["launches_by_path"].update(
+            dist_nccl_world1_generate_fit=dist_rec["nccl_world1"]["launches"][k.name],
+            **{f"dist_gloo_rank{r}_{c}": p["launches"][c][k.name] for r, p in enumerate(dist_rec["gloo_two_ranks"]["ranks"])
+               for c in ("genfit", "engine", "train")})
     rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"],
-                                       cli_train_s1=cli["launches"]["train_s1"][NN_ARGMIN.name])
+                                       cli_train_s1=cli["launches"]["train_s1"][NN_ARGMIN.name],
+                                       native_train_s1=native["k3_launches"])
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb},
                     "k1": {"stage_ms": k1["stage_ms"]},
@@ -1789,7 +2092,8 @@ def smoke(dev) -> None:
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,
-                    "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve, "cli": cli}))
+                    "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve, "cli": cli,
+                    "native": native, "dist": dist_rec}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

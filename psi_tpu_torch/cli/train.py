@@ -3,8 +3,12 @@ frontend_sh_scripts/train_js.sh) for both stages.
 
 Port of ``psi_tpu.cli.train``. Trains on the first NVIDIA card unless
 --device names another device. ``--num_devices`` keeps psi_tpu's flag:
-None or 1 trains on the one device; a larger value is refused until
-multi-GPU training is ported (ROADMAP A13).
+None or 1 trains on the one device with no process group; N > 1 starts N
+worker processes joined in one group, rank r on card r over NCCL (an error
+when fewer than N cards are present), or all on the CPU over gloo with
+``--device cpu``. Each rank reads the same batches and trains on its rows
+of each (``TrainOP(mesh=)``); rank 0 writes the checkpoints and
+metrics.jsonl. A rank that fails stops the others and the run's exit code.
 
   python -m psi_tpu_torch.cli.train --model_type s1 --save_dir ckpts \
       --batch_size 32 --num_epoch 30 --lr_h 0.0003 \
@@ -17,7 +21,11 @@ from __future__ import annotations
 
 import argparse
 import glob
+import multiprocessing
 import os
+import shutil
+import tempfile
+import time
 
 
 def build_parser():
@@ -36,8 +44,8 @@ def build_parser():
     p.add_argument("--latentD", type=int, default=256)
     p.add_argument("--grad_clip_norm", type=float, default=None)
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data-parallel size (None or 1 = one device; more needs multi-GPU "
-                   "training, not ported yet: ROADMAP A13)")
+                   help="data-parallel size: None or 1 trains in this process on one device; N > 1 "
+                   "starts N ranks, one a card (NCCL), or N CPU ranks (gloo) with --device cpu")
     p.add_argument("--synthetic_batches", type=int, default=4, help="batches/epoch in --synthetic mode")
     p.add_argument(
         "--prune_scene_points", type=int, default=0,
@@ -61,14 +69,70 @@ def find_hdf5(proxe_path: str, prefix: str):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.num_devices is not None and args.num_devices > 1:
-        raise SystemExit(f"--num_devices {args.num_devices}: multi-GPU training is not ported yet "
-                         "(ROADMAP A13); pass --num_devices 1 or leave it out")
+        spawn_ranks(args)
+        return
+    from psi_tpu_torch.cli.common import resolve_device
 
-    from psi_tpu_torch.cli.common import build_assets, resolve_device
+    train(args, resolve_device(args.device))
+
+
+def spawn_ranks(args) -> None:
+    """Train on ``args.num_devices`` ranks, one process each, joined through a
+    file store in a fresh temporary directory. Raises SystemExit when a rank
+    exits non-zero (the others are stopped) or, before starting any, when
+    fewer cards are present than ranks asked for."""
+    import torch
+
+    n = args.num_devices
+    if args.device is None or torch.device(args.device).type == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise SystemExit(f"--num_devices {n} asks for {n} NVIDIA cards, {have} present")
+    store_dir = tempfile.mkdtemp(prefix="psi_train_ranks_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(args, r, n, f"file://{store_dir}/store"), name=f"rank{r}")
+             for r in range(n)]
+    try:
+        for p in procs:
+            p.start()
+        while any(p.exitcode is None for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+        failed = [(p.name, p.exitcode) for p in procs if p.exitcode not in (None, 0)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if failed:
+        raise SystemExit(f"training ranks failed: {failed}")
+
+
+def _rank_main(args, rank: int, world: int, init_method: str) -> None:
+    """One rank of ``spawn_ranks``: join the group, train on this rank's rows."""
+    import torch
+    import torch.distributed as dist
+
+    from psi_tpu_torch.parallel.distributed import ensure_distributed
+    from psi_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device("cpu") if args.device is not None and torch.device(args.device).type == "cpu" \
+        else torch.device("cuda", rank)
+    ensure_distributed(init_method=init_method, num_processes=world, process_id=rank, device=device)
+    try:
+        train(args, device, make_mesh(device=device))
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args, device, mesh=None) -> None:
+    """The training run ``args`` describe, on ``device`` (over ``mesh``)."""
+    from psi_tpu_torch.cli.common import build_assets
     from psi_tpu_torch.train.loop import TrainOP
     from psi_tpu_torch.utils.config import LossConfig, TrainConfig
 
-    device = resolve_device(args.device)
     cfg = TrainConfig(
         model_type=args.model_type,
         batch_size=args.batch_size,
@@ -104,7 +168,7 @@ def main(argv=None):
             train_files, mode="all" if args.use_all else "train", registry=registry
         )
 
-    op = TrainOP(cfg, loss_cfg, assets, device=device)
+    op = TrainOP(cfg, loss_cfg, assets, device=device, mesh=mesh)
     op.train(batch_gen)
 
 

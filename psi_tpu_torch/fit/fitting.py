@@ -40,6 +40,16 @@ The drivers: ``fit_bodies`` (one call), ``make_generate_fit_step`` and
 one per row), ``make_fit_step_carry_opt_state`` (the reference's Adam
 carried from body to body, serial) and ``FittingOP`` (numpy populations
 and the reference's ``body_gen_*.pkl`` files).
+
+Population sharding (``mesh=`` of ``make_fit_step``, ``make_generate_fit_step``
+and ``make_generate_fit_rows``; ``parallel/mesh.py``): every rank is given the
+whole population and fits its own rows [r N/R, (r+1) N/R) with the chunks
+above (``overlap_chunks`` splits a rank's rows). Each body's loss is its own,
+so no collective runs inside an iteration; the fitted rows, the metrics and
+the loss history are gathered at the end, and every rank returns the whole
+population's. One step reads across bodies: ``_build_subset`` scores the
+population's first ``N_SCORE`` rows, so those rows are gathered from the
+ranks that hold them and every rank builds the same subset.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ from psi_tpu_torch.ops.sdf import (
     sdf_trilinear_packed,
     sdf_trilinear_packed_cached,
 )
+from psi_tpu_torch.parallel.distributed import gather_rows
 from psi_tpu_torch.train.objective import SceneAssets
 from psi_tpu_torch.utils.config import FitConfig
 from psi_tpu_torch.utils.precision import strict_f32
@@ -238,7 +249,8 @@ N_SCORE = 64  # bodies whose penetration picks the subset's second half
 
 def _build_subset(assets: SceneAssets, cfg: FitConfig, x72_now, cam_ext, scene_idx, fused_bundle) -> Dict:
     """The vertex subset of FitConfig.cheap_collision_verts, picked from the
-    population's state after the warm-up.
+    population's state after the warm-up (x72_now, cam_ext and scene_idx
+    are the whole population's, at least its first ``N_SCORE`` rows).
 
     Half of the row budget is a stride-uniform cover of the mesh. The other
     half goes to the rows that carry the most penetration mass over the first
@@ -291,14 +303,16 @@ class _Chunk:
         self.sel = None
 
 
-def _fit_program(cfg: FitConfig, want_metrics: bool = True) -> Callable:
+def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> Callable:
     """fit(assets, x72_init [N, 72], cam_ext [N, 4, 4], scene_idx [N]) ->
     (x72 [N, 72], final per-body metrics or None, loss_hist [num_iter, N]).
 
     loss_hist[i] is each body's total at iteration i, before its update.
     want_metrics=False skips the final full loss pass, which only reports
     metrics (at full-vertex semantics, whatever subset the cheap passes
-    used); the fitted bodies are the same either way."""
+    used); the fitted bodies are the same either way. With a mesh this rank
+    fits its rows of the N it is given, and the results are gathered; N must
+    divide evenly over the mesh."""
     if cfg.lbs_precision not in LBS_PRECISIONS:
         raise ValueError(f"lbs_precision must be one of {LBS_PRECISIONS}, got {cfg.lbs_precision!r}")
     kinds = fit_schedule(cfg)
@@ -308,15 +322,17 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True) -> Callable:
 
     def fit(assets: SceneAssets, x72_init, cam_ext, scene_idx):
         scene_idx = scene_idx.to(torch.int64)
+        lo_r, hi_r = mesh.rows(x72_init.shape[0]) if mesh is not None else (0, x72_init.shape[0])
         with strict_f32(), torch.no_grad():
-            xhr_init = convert_to_6D_rot(x72_init)
+            xhr_init = convert_to_6D_rot(x72_init[lo_r:hi_r])
+            cam_r, sidx_r = cam_ext[lo_r:hi_r], scene_idx[lo_r:hi_r]
             # the fused kernels' constant operands: once per fit call
             bundle = make_fused_bundle(assets.smplx) if cfg.lbs_precision == "fused" else None
             sub = None
 
             def loss_fn(lo, hi, x, sel=None, fresh_nn=None, fresh_sdf=None):
                 return _per_body_losses(
-                    assets, x, xhr_init[lo:hi], cam_ext[lo:hi], scene_idx[lo:hi], cfg,
+                    assets, x, xhr_init[lo:hi], cam_r[lo:hi], sidx_r[lo:hi], cfg,
                     sel, fresh_nn, fresh_sdf, sub, bundle,
                 )
 
@@ -330,6 +346,8 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True) -> Callable:
             for it, kind in enumerate(kinds):
                 if it == subset_at:
                     x_now = torch.cat([c.xhr for c in chunks]) if C > 1 else chunks[0].xhr
+                    if mesh is not None:  # the scoring rows may lie on other ranks
+                        x_now = gather_rows(x_now, mesh)
                     sub = _build_subset(assets, cfg, convert_to_3D_rot(x_now), cam_ext, scene_idx, bundle)
                     for c in chunks:
                         if c.sel is not None:  # the warm-up carried every vertex's cells
@@ -354,19 +372,28 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True) -> Callable:
             loss_hist = torch.stack(hist)
             xhr = chunks[0].xhr if C == 1 else torch.cat([c.xhr for c in chunks])
             x72 = convert_to_3D_rot(xhr)
-            if not want_metrics:
-                return x72, None, loss_hist
-            sub = None  # the reported losses are the reference's, over every vertex
-            _, (final, _) = loss_fn(0, n, xhr)
-            return x72, {k: v.detach() for k, v in final.items()}, loss_hist
+            final = None
+            if want_metrics:
+                sub = None  # the reported losses are the reference's, over every vertex
+                _, (final, _) = loss_fn(0, n, xhr)
+                final = {k: v.detach() for k, v in final.items()}
+            if mesh is not None:
+                x72, loss_hist = gather_rows(x72, mesh), gather_rows(loss_hist, mesh, dim=1)
+                if final is not None:
+                    names = list(final)
+                    stacked = gather_rows(torch.stack([final[k] for k in names], dim=1), mesh)
+                    final = dict(zip(names, stacked.unbind(dim=1)))
+            return x72, final, loss_hist
 
     return fit
 
 
-def make_fit_step(assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True) -> Callable:
+def make_fit_step(assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True, mesh=None) -> Callable:
     """fit(x72_init [N, 72], cam_ext [N, 4, 4], scene_idx [N]) ->
-    (x72_fitted [N, 72], final per-body metrics, per-iteration loss hist)."""
-    fit = _fit_program(cfg, want_metrics=want_metrics)
+    (x72_fitted [N, 72], final per-body metrics, per-iteration loss hist).
+    mesh: population-sharded (see the module docstring); every rank passes
+    the same N bodies and gets all N back."""
+    fit = _fit_program(cfg, want_metrics=want_metrics, mesh=mesh)
 
     def bound(x72_init, cam_ext, scene_idx):
         return fit(assets, x72_init, cam_ext, scene_idx)
@@ -375,7 +402,7 @@ def make_fit_step(assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True
 
 
 def make_generate_fit_step(
-    model: Model, assets: SceneAssets, cfg: FitConfig, n_samples: int, want_metrics: bool = True
+    model: Model, assets: SceneAssets, cfg: FitConfig, n_samples: int, want_metrics: bool = True, mesh=None
 ) -> Callable:
     """Sample a population for ONE snapshot and refine it.
 
@@ -383,8 +410,10 @@ def make_generate_fit_step(
     [N, 4, 4], scene_idx [N], generator=None, eps=None) -> (x72 [N, 72],
     metrics, hist). ``model`` is a HumanCVAES1 or a HumanCVAES2; eps
     injects the latents in place of a draw from ``generator`` (a tensor
-    [N, eps_d] for S1, a pair of [N, 32] tensors for S2)."""
-    fit = _fit_program(cfg, want_metrics=want_metrics)
+    [N, eps_d] for S1, a pair of [N, 32] tensors for S2). With a mesh every
+    rank samples all N rows (the same generator state or eps on every rank
+    gives the unsharded call's rows) and only the fit is sharded."""
+    fit = _fit_program(cfg, want_metrics=want_metrics, mesh=mesh)
 
     def run(xs, cam_int, max_d, cam_ext, scene_idx, generator=None, eps=None):
         x72 = generate_bodies(model, xs, cam_int, max_d, n_samples, generator=generator, eps=eps)
@@ -393,14 +422,17 @@ def make_generate_fit_step(
     return run
 
 
-def make_generate_fit_rows(model: Model, assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True) -> Callable:
+def make_generate_fit_rows(model: Model, assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True,
+                           mesh=None) -> Callable:
     """``make_generate_fit_step`` for a coalesced batch of snapshots: row r
     of the population is sampled for snapshot ``req_idx[r]`` and refined.
 
     Returns run(xs_stack [R, H, W, 2], cam_int_stack [R, 3, 3], max_d_stack
     [R], req_idx [P], cam_ext_rows [P, 4, 4], sidx_rows [P], generator=None,
-    eps=None) -> (x72 [P, 72], metrics, hist)."""
-    fit = _fit_program(cfg, want_metrics=want_metrics)
+    eps=None) -> (x72 [P, 72], metrics, hist). With a mesh, as
+    ``make_generate_fit_step``: all P rows sampled on every rank, the fit
+    sharded."""
+    fit = _fit_program(cfg, want_metrics=want_metrics, mesh=mesh)
 
     def run(xs_stack, cam_int_stack, max_d_stack, req_idx, cam_ext_rows, sidx_rows, generator=None, eps=None):
         x72 = generate_bodies_rows(model, xs_stack, cam_int_stack, max_d_stack, req_idx,

@@ -15,6 +15,13 @@ restore that mode. ``TestOP`` is the file-writing driver on top of
 Latents come from ``generator`` (on the model's device) unless ``eps`` is
 given: a tensor [N, eps_d] for ``HumanCVAES1``, a pair (eps_g, eps_l) of
 [N, 32] tensors for ``HumanCVAES2``.
+
+Under a mesh (``fit.fitting``'s ``mesh=``, ``GenerationEngine(mesh=)``) the
+sampler is not sharded: every rank samples the whole population from a
+generator in the same state, or the same injected ``eps``, so its rows are
+the unsharded call's rows bit for bit, and only the fit after it splits the
+rows over the ranks. The scene trunk runs once and the decoder for the
+population's rows, a small share of a generate+fit call.
 """
 
 from __future__ import annotations

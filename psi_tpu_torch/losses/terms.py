@@ -39,6 +39,8 @@ def contact_robust_loss(contact_dist: torch.Tensor, denom_offset: float = 1.0) -
     return torch.mean(s / (s + denom_offset))
 
 
-def collision_loss(body_sdf: torch.Tensor) -> torch.Tensor:
-    """mean |sdf| over penetrating vertices, 0 when none (train_s1.py:193-198)."""
-    return sdf_penetration_loss(body_sdf)
+def collision_loss(body_sdf: torch.Tensor, mesh=None) -> torch.Tensor:
+    """mean |sdf| over penetrating vertices, 0 when none (train_s1.py:193-198);
+    with a mesh, this rank's share of the whole batch's mean
+    (``sdf_penetration_loss``)."""
+    return sdf_penetration_loss(body_sdf, mesh)

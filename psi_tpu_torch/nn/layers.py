@@ -7,6 +7,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from psi_tpu_torch.parallel.distributed import all_reduce_sum
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose running variance follows flax's ``nn.BatchNorm``.
@@ -19,11 +21,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``momentum`` must be a number (no cumulative average).
     Parameter and buffer names, the training-mode output and eval mode are
     ``nn.BatchNorm2d``'s, unchanged.
+
+    Over a mesh of several ranks (``use_mesh``), a training batch is the
+    global one, as under psi_tpu's GSPMD: the per-channel sum, sum of squares
+    and count are summed over the ranks by a differentiable all-reduce, and
+    the batch is normalised with flax's statistics of the whole batch, mean
+    and max(0, E[x^2] - mean^2), which the running ones blend in. The
+    backward then runs through the all-reduce too (``nn.SyncBatchNorm``
+    blends the unbiased variance and is not this). A mesh of one rank holds
+    the whole batch and takes the path above.
     """
+
+    mesh = None  # set by use_mesh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._forward_global(x)
         n = x.numel() // x.shape[1]
         # torch blends momentum * unbiased into the buffer it is given: hand it
         # zeros for the variance, and blend (n - 1) / n of what comes back.
@@ -35,6 +50,32 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - self.momentum).add_(new_var, alpha=(n - 1) / n)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        C = x.shape[1]
+        dims = (0, 2, 3)
+        local = torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), x.new_full((1,), x.numel() // C)])
+        stats = all_reduce_sum(local, self.mesh)
+        n = stats[2 * C]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C : 2 * C] / n - mean * mean, min=0.0)
+        shape = (1, C, 1, 1)
+        y = (x - mean.reshape(shape)) * (torch.rsqrt(var + self.eps) * self.weight).reshape(shape)
+        out = y + self.bias.reshape(shape)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def use_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Make every ``BatchNorm2d`` of ``model`` take its training statistics
+    over ``mesh`` (None: this rank's batch alone). Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = mesh
+    return model
 
 
 class ResBlock(nn.Module):

@@ -22,6 +22,8 @@ from typing import Tuple
 
 import torch
 
+from psi_tpu_torch.parallel.distributed import all_reduce_sum_
+
 
 def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
     """[-1, 1] -> voxel coords (align_corners=False), clamped to the border."""
@@ -112,10 +114,17 @@ def sdf_trilinear_stacked(
     return _corner_lerp(lambda xi, yi, zi: flat[((base + xi) * H + yi) * W + zi], cx, cy, cz, (D, H, W))
 
 
-def sdf_penetration_loss(body_sdf: torch.Tensor) -> torch.Tensor:
+def sdf_penetration_loss(body_sdf: torch.Tensor, mesh=None) -> torch.Tensor:
     """Mean |sdf| over penetrating (sdf < 0) vertices; 0 if none — the
-    reference's ``body_sdf[body_sdf < 0].abs().mean()`` at a static shape."""
+    reference's ``body_sdf[body_sdf < 0].abs().mean()`` at a static shape.
+
+    With a mesh, ``body_sdf`` is this rank's rows of the batch and the result
+    is its share of the whole batch's mean: its own sum over the count of
+    penetrating vertices on every rank (summed over the ranks; no gradient
+    through a count). The shares sum to the mean of the whole batch."""
     count = (body_sdf < 0).sum()
+    if mesh is not None:
+        count = all_reduce_sum_(count, mesh)
     # minimum, not clamp: at sdf == 0 both it and jnp.minimum pass half the gradient
     total = -torch.minimum(body_sdf, body_sdf.new_zeros(())).sum()
     return total / torch.clamp(count, min=1).to(body_sdf.dtype)

@@ -18,7 +18,14 @@ launches the fused skinning kernels and the chamfer argmin through
 There is no compile step on this side: ``warmup`` pays what a first request
 would (the kernel library's build or load, the shared-memory opt-ins, the
 cuDNN and cuBLAS handles and algorithm choice, the allocator's growth).
-Serving over several cards is not ported yet.
+
+Over several ranks (``mesh=``, ``parallel/mesh.py``) the engine is SPMD:
+every rank holds one, built with the same arguments and seed, and calls
+``generate`` / ``generate_coalesced`` with the same arguments. Every rank
+samples the whole population and fits its rows (``fit.fitting``); each
+returns the whole result. The population must divide evenly over the ranks.
+``ServingQueue``, ``ServingRouter`` and ``cli.serve`` stay single-process, as
+psi_tpu's have no mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from psi_tpu_torch.fit.fitting import make_generate_fit_rows, make_generate_fit_step
 from psi_tpu_torch.gen.sample import Eps, Model, generate_bodies, generate_bodies_rows
+from psi_tpu_torch.parallel.mesh import replicate
 from psi_tpu_torch.train.objective import SceneAssets
 from psi_tpu_torch.utils.config import FitConfig
 
@@ -82,7 +90,8 @@ class GenerationEngine:
     ``model`` is a HumanCVAES1 or a HumanCVAES2 with its weights in it; it is
     moved to the engine's device here, once. ``assets`` must already live on
     that device (``make_assets(..., device=)``): they are tens of megabytes
-    and are not copied behind the caller's back."""
+    and are not copied behind the caller's back. With a mesh the device is
+    the mesh's unless ``device`` names one, and the weights are rank 0's."""
 
     def __init__(
         self,
@@ -93,12 +102,20 @@ class GenerationEngine:
         seed: int = 0,
         max_requests: int = 16,
         device=None,
+        mesh=None,
     ):
+        if mesh is not None:
+            if population % mesh.size != 0:
+                raise ValueError(f"population={population} must divide evenly over the {mesh.size}-rank mesh")
+            device = mesh.device if device is None else device
         self.device = _resolve_device(device)
         for name in ("scene_verts", "sdf_packed", "contact_vids"):
             if getattr(assets, name).device != self.device:
                 raise ValueError(f"assets.{name} is on {getattr(assets, name).device}, the engine on {self.device}")
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicate(self.model, mesh)
+        self.mesh = mesh
         self.population = population
         # serving default is the production fit stack; pass FitConfig.exact()
         # for reference-exact refinement semantics
@@ -108,8 +125,9 @@ class GenerationEngine:
         # want_metrics=False: ServeResult carries bodies only, so the
         # final-state metrics pass — a full exact loss evaluation — would be
         # computed and thrown away on every request.
-        self._genfit = make_generate_fit_step(self.model, assets, self.fit_cfg, population, want_metrics=False)
-        self._genfit_rows = make_generate_fit_rows(self.model, assets, self.fit_cfg, want_metrics=False)
+        self._genfit = make_generate_fit_step(self.model, assets, self.fit_cfg, population, want_metrics=False,
+                                              mesh=mesh)
+        self._genfit_rows = make_generate_fit_rows(self.model, assets, self.fit_cfg, want_metrics=False, mesh=mesh)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         # one program at a time: the generator, the model's train/eval toggle
         # (gen.sample.eval_mode) and the kernels' launch counts are not re-entrant

@@ -8,7 +8,8 @@ reference's ``torch.save`` dict (train_s1.py:306-310): ``epoch``,
 reference's, plus what an exact resume needs: the step count, the noise
 generator's state and, for a mid-epoch save, ``batches_done``.
 Hyperparameters stay encoded in the checkpoint *directory name*
-(``checkpoint_dir_name``, the reference's README convention).
+(``checkpoint_dir_name``, the reference's README convention). In a process
+group only the primary rank writes; every rank resumes from the same file.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from psi_tpu_torch.parallel.distributed import is_primary
 
 logger = logging.getLogger(__name__)
 
@@ -44,8 +47,9 @@ def checkpoint_dir_name(
     )
 
 
-def save_checkpoint(save_dir: str, epoch: int, state: Any, batches_done: int = 0) -> str:
-    """Write ``state`` (a ``train.loop.TrainState``) and return the path.
+def save_checkpoint(save_dir: str, epoch: int, state: Any, batches_done: int = 0) -> Optional[str]:
+    """Write ``state`` (a ``train.loop.TrainState``) and return the path; on
+    a rank other than the primary write nothing and return None.
 
     ``batches_done`` > 0 marks a MID-epoch wall-clock save (the reference
     saves every ``saving_per_hours`` inside the epoch, train_s1.py:303-310):
@@ -53,6 +57,8 @@ def save_checkpoint(save_dir: str, epoch: int, state: Any, batches_done: int = 0
     batch ``batches_done``. The generator's state is the one after the
     noise of the batches already trained, so a resumed run draws exactly
     the noise an uninterrupted one would."""
+    if not is_primary():
+        return None
     os.makedirs(save_dir, exist_ok=True)
     payload = {
         "epoch": int(epoch),

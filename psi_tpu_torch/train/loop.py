@@ -9,10 +9,20 @@ model and the optimizer are stateful torch objects, so a step updates its
 the gradients, ``cvae_loss``, backward, the optional global-norm clip,
 Adam; all of it inside ``strict_f32`` (the backward too). On the card the
 objective launches kernel K3 once per step.
+
+Data-parallel training (``TrainOP(mesh=)``, ``parallel/mesh.py``): every rank
+reads the same global batch and keeps its rows; the objective returns the
+rank's share of the global loss (``train/objective.py``); after the backward
+the gradients are summed over the ranks, the global-norm clip runs on the
+sum, and Adam takes the same step on every rank. The latent noise is the
+global batch's: every rank draws the whole batch's from the same generator
+and keeps its rows. Only the primary rank writes checkpoints and
+``metrics.jsonl``; the metrics it writes are the global batch's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -25,6 +35,9 @@ import torch
 
 from psi_tpu_torch.models.cvae_s1 import HumanCVAES1
 from psi_tpu_torch.models.cvae_s2 import HumanCVAES2
+from psi_tpu_torch.nn.layers import use_mesh
+from psi_tpu_torch.parallel.distributed import all_reduce_sum_, is_primary
+from psi_tpu_torch.parallel.mesh import replicate, shard_batch
 from psi_tpu_torch.train.checkpoint import load_newest_checkpoint, save_checkpoint
 from psi_tpu_torch.train.objective import SceneAssets, cvae_loss
 from psi_tpu_torch.utils.config import LossConfig, TrainConfig
@@ -77,33 +90,65 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
     torch._foreach_mul_(grads, scale)
 
 
+def global_noise(model: torch.nn.Module, batch_size: int, generator: torch.Generator, device):
+    """The latents the model draws from ``generator`` for a batch of
+    ``batch_size`` in train mode, drawn here in the same order and shapes:
+    [B, 32] for S1; S2's global, then its local [B, 32]."""
+    def draw(d):
+        return torch.randn((batch_size, d), generator=generator, device=device, dtype=torch.float32)
+
+    if isinstance(model, HumanCVAES2):
+        return draw(model.trans_vae.zdim), draw(model.pose_vae.zdim)
+    return draw(model.eps_d)
+
+
 def make_train_step(
     assets: SceneAssets,
     loss_cfg: LossConfig,
     model_type: str,
     grad_clip_norm: Optional[float] = None,
+    mesh=None,
 ) -> Callable:
     """step(state, batch, fca, f_scene, eps=None) -> (state, metrics).
 
     ``batch`` holds tensors on the model's device; metrics are detached 0-d
     tensors there (nothing is read back to the host). The latent noise
-    comes from ``state.generator`` unless ``eps`` injects it."""
+    comes from ``state.generator`` unless ``eps`` injects it. With a mesh,
+    ``batch`` is this rank's rows of the global batch, ``eps`` (when given)
+    is the global batch's, and the metrics are the global batch's."""
 
     def step(state: TrainState, batch, fca, f_scene, eps=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = [p for p in state.model.parameters() if p.requires_grad]
+        gen = None if eps is not None else state.generator
+        if mesh is not None:  # the global batch's noise, this rank's rows
+            rows = next(iter(batch.values())).shape[0]
+            lo, hi = mesh.rows(rows * mesh.size)
+            if eps is None:
+                eps = global_noise(state.model, rows * mesh.size, state.generator, mesh.device)
+                gen = None
+            eps = tuple(e[lo:hi] for e in eps) if isinstance(eps, tuple) else eps[lo:hi]
         with strict_f32():
             state.optimizer.zero_grad(set_to_none=True)
             total, metrics, _ = cvae_loss(
                 state.model, batch, assets, fca, f_scene, loss_cfg, model_type=model_type, train=True,
-                generator=None if eps is not None else state.generator, eps=eps,
+                generator=gen, eps=eps, mesh=mesh,
             )
             # only the model's parameters: the assets' modules take no gradient
             total.backward(inputs=params)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if mesh is not None:  # the shares' sums: the global gradient and metrics
+                grads = [p.grad for p in params if p.grad is not None]  # the same set on every rank
+                flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]), mesh)
+                for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+                    g.copy_(f.view_as(g))
+                names = list(metrics)
+                summed = all_reduce_sum_(torch.stack([metrics[k] for k in names]), mesh)
+                metrics = dict(zip(names, summed.unbind()))
             if grad_clip_norm is not None:
                 clip_by_global_norm_([p.grad for p in params], grad_clip_norm)
             state.optimizer.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return step
 
@@ -113,6 +158,7 @@ def make_epoch_step(
     loss_cfg: LossConfig,
     model_type: str,
     grad_clip_norm: Optional[float] = None,
+    mesh=None,
 ) -> Callable:
     """step_epoch(state, stacked, fca, f_scene) -> (state, metrics), where
     ``stacked`` holds K batches on a leading axis (``_stage_chunk``) and each
@@ -123,7 +169,7 @@ def make_epoch_step(
     and the noise drawn for each, are those of the per-step loop: the chunk
     size changes memory and the number of host -> device copies, never the
     result."""
-    step = make_train_step(assets, loss_cfg, model_type, grad_clip_norm)
+    step = make_train_step(assets, loss_cfg, model_type, grad_clip_norm, mesh)
 
     def step_epoch(state: TrainState, stacked, fca, f_scene):
         rows = []
@@ -156,9 +202,16 @@ class TrainOP:
     """End-to-end training (reference TrainOP, train_s1.py:38-338).
 
     Runs on the first card unless ``device`` says otherwise; ``assets`` must
-    live on the same device."""
+    live on the same device. With a mesh (data-parallel, module docstring)
+    it runs on the mesh's device unless ``device`` names one, the model
+    starts as rank 0's, its BatchNorms take the global batch's statistics,
+    and ``cfg.batch_size`` (the global batch) must divide over the ranks."""
 
-    def __init__(self, cfg: TrainConfig, loss_cfg: LossConfig, assets: SceneAssets, device=None):
+    def __init__(self, cfg: TrainConfig, loss_cfg: LossConfig, assets: SceneAssets, device=None, mesh=None):
+        if mesh is not None:
+            if cfg.batch_size % mesh.size:
+                raise ValueError(f"batch_size={cfg.batch_size} does not divide evenly over the {mesh.size}-rank mesh")
+            device = mesh.device if device is None else device
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("TrainOP runs on an NVIDIA card; pass device='cpu' to train on the CPU")
@@ -167,8 +220,11 @@ class TrainOP:
         self.loss_cfg = loss_cfg
         self.assets = assets
         self.device = torch.device(device)
+        self.mesh = mesh
         self.state = init_state(cfg, self.device)
-        self.epoch_fn = make_epoch_step(assets, loss_cfg, cfg.model_type, cfg.grad_clip_norm)
+        if mesh is not None:
+            use_mesh(replicate(self.state.model, mesh), mesh)
+        self.epoch_fn = make_epoch_step(assets, loss_cfg, cfg.model_type, cfg.grad_clip_norm, mesh)
 
     @property
     def model(self) -> torch.nn.Module:
@@ -184,8 +240,10 @@ class TrainOP:
         chunk has been enqueued; otherwise each step stages its own batch
         and its metrics are read back at once (one transfer per step)."""
         cfg = self.cfg
-        log = log_fn or (print if cfg.verbose else (lambda *_: None))
-        os.makedirs(cfg.save_dir, exist_ok=True)
+        primary = is_primary()
+        log = log_fn or (print if cfg.verbose and primary else (lambda *_: None))
+        if primary:
+            os.makedirs(cfg.save_dir, exist_ok=True)
 
         starting_ep = 0
         skip_batches = 0  # mid-epoch resume: batches of starting_ep already trained
@@ -199,7 +257,8 @@ class TrainOP:
         chunk = max(1, cfg.scan_chunk_size) if cfg.scan_epoch else 1
         last_metrics: Dict[str, float] = {}
         start_time = time.time()
-        with open(os.path.join(cfg.save_dir, "metrics.jsonl"), "a") as metrics_f:
+        metrics_path = os.path.join(cfg.save_dir, "metrics.jsonl")
+        with open(metrics_path, "a") if primary else contextlib.nullcontext() as metrics_f:
 
             def drain(pending) -> None:
                 """One read-back for a group's metrics; one jsonl row per step."""
@@ -209,7 +268,8 @@ class TrainOP:
                 values = torch.stack([metrics[k] for k in names], dim=1).tolist()  # [steps][names]
                 for row in values:
                     last_metrics = dict(zip(names, row))
-                    metrics_f.write(json.dumps({"epoch": ep + 1, **last_metrics}) + "\n")
+                    if metrics_f is not None:
+                        metrics_f.write(json.dumps({"epoch": ep + 1, **last_metrics}) + "\n")
                     if cfg.verbose and not cfg.scan_epoch:
                         log("---in [epoch {:d}]: rec_t={:f}, rec_p={:f}, kl={:f}, vp={:f}, "
                             "contact={:f}, collision={:f}".format(
@@ -253,7 +313,8 @@ class TrainOP:
                     seen += 1
                     if seen <= n_skip:  # mid-epoch resume: already trained
                         continue
-                    group.append({k: np.asarray(v) for k, v in b.items()})
+                    b = {k: np.asarray(v) for k, v in b.items()}
+                    group.append(shard_batch(b, self.mesh) if self.mesh is not None else b)
                     if len(group) == chunk:
                         run_group(group)
                         group = []

@@ -16,6 +16,16 @@ the body model, the VPoser decoder, the contact-vertex ids, every scene's
 corner-packed SDF grid and bounds, and every scene's Morton-ordered,
 far-padded point cloud; bodies index their scene with an int scene id.
 
+Data-parallel training (``mesh=``): the batch is this rank's rows of the
+global one, and the loss returned is this rank's share of the global
+batch's, so that the shares of the ranks sum to the loss of the whole
+batch, and so do their gradients. Every term but collision is a plain mean
+over equal shards, so its share is the rank's mean over the rank count;
+collision is a mean over the penetrating vertices of the whole batch, so
+its share is the rank's own sum over the count of all ranks
+(``ops/sdf.py::sdf_penetration_loss``); BatchNorm takes the whole batch's
+statistics (``nn/layers.py``).
+
 The epoch-dependent gates are plain numbers or 0-d tensors and no branch
 depends on them, so the sequence of device operations is the same for
 every step:
@@ -67,11 +77,14 @@ def scene_geometry_losses(
     scene_idx: torch.Tensor,  # [B] int
     contact_denom_offset: float,
     prune_scene_points: int = 0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(raw contact loss, raw collision loss) for reconstructed bodies: the
     body-decode -> chamfer -> SDF chain at the 'high' (f32) LBS tier.
     prune_scene_points > 0 restricts the contact NN search to the K scene
-    points nearest each body's contact centroid; 0 searches the whole cloud."""
+    points nearest each body's contact centroid; 0 searches the whole cloud.
+    With a mesh the collision loss is this rank's share of the whole batch's
+    (the contact loss stays this rank's mean)."""
     scene_idx = scene_idx.to(torch.int64)
     with strict_f32():
         verts, _ = body_vec_to_verts(assets.smplx, assets.vposer, xh_rec, cam_ext, precision="high")
@@ -84,7 +97,7 @@ def scene_geometry_losses(
     loss_contact = contact_robust_loss(d1, contact_denom_offset)
 
     body_sdf = sdf_trilinear_packed(assets.sdf_packed, scene_idx, verts, assets.grid_mins, assets.grid_maxs)
-    return loss_contact, collision_loss(body_sdf)
+    return loss_contact, collision_loss(body_sdf, mesh)
 
 
 def cvae_loss(
@@ -98,6 +111,7 @@ def cvae_loss(
     train: bool = True,
     generator: Optional[torch.Generator] = None,
     eps=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], None]:
     """(total loss, per-term metrics as 0-d tensors, None).
 
@@ -109,6 +123,8 @@ def cvae_loss(
     The latent noise is drawn from ``generator`` (on the model's device)
     unless ``eps`` injects it: a tensor [B, 32] for 's1', a pair (eps_g,
     eps_l) for 's2'; with neither the posterior mean is decoded.
+    With a mesh, the total and every term are this rank's shares of the
+    global batch's (module docstring).
     """
     if model.training != train:
         model.train(train)
@@ -119,19 +135,20 @@ def cvae_loss(
         # f32, only the host -> device copy is narrowed
         xs = xs.to(torch.float32)
 
+    share = 1.0 / mesh.size if mesh is not None else 1.0  # of a mean over equal shards
     with strict_f32():
         xhn = normalize_global_T(xh, cam_int, max_d)
         xhnr = convert_to_6D_rot(xhn)
 
         if model_type == "s1":
             xhnr_rec, mu, logvar = model(xhnr, xs, generator=generator, eps=eps)
-            loss_kl = fca**2 * cfg.weight_loss_kl * kl_normal_loss(mu, logvar)
+            loss_kl = share * (fca**2 * cfg.weight_loss_kl * kl_normal_loss(mu, logvar))
             kl_metrics = {"kl": loss_kl}
         elif model_type == "s2":
             eps_g, eps_l = eps if eps is not None else (None, None)
             xhnr_rec, mu_g, lv_g, mu_l, lv_l = model(xhnr, xs, generator=generator, eps_g=eps_g, eps_l=eps_l)
-            loss_kl_g = fca**2 * cfg.weight_loss_kl * kl_normal_loss(mu_g, lv_g)
-            loss_kl_l = fca**2 * cfg.weight_loss_kl * kl_normal_loss(mu_l, lv_l)
+            loss_kl_g = share * (fca**2 * cfg.weight_loss_kl * kl_normal_loss(mu_g, lv_g))
+            loss_kl_l = share * (fca**2 * cfg.weight_loss_kl * kl_normal_loss(mu_l, lv_l))
             loss_kl = loss_kl_g + loss_kl_l
             kl_metrics = {"kl": loss_kl, "kl_g": loss_kl_g, "kl_l": loss_kl_l}
         else:
@@ -140,17 +157,17 @@ def cvae_loss(
         xhn_rec = convert_to_3D_rot(xhnr_rec)
         xh_rec = recover_global_T(xhn_rec, cam_int, max_d)
 
-        loss_rec_t = cfg.weight_loss_rec_h * (
+        loss_rec_t = share * (cfg.weight_loss_rec_h * (
             0.5 * l1_loss(xhnr_rec[:, :3], xhnr[:, :3]) + 0.5 * l1_loss(xh_rec[:, :3], xh[:, :3])
-        )
-        loss_rec_p = cfg.weight_loss_rec_h * l1_loss(xhnr_rec[:, 3:], xhnr[:, 3:])
-        loss_vposer = cfg.weight_loss_vposer * vposer_reg_loss(xh_rec[:, 16:48])
+        ))
+        loss_rec_p = share * (cfg.weight_loss_rec_h * l1_loss(xhnr_rec[:, 3:], xhnr[:, 3:]))
+        loss_vposer = share * (cfg.weight_loss_vposer * vposer_reg_loss(xh_rec[:, 16:48]))
 
         raw_contact, raw_collision = scene_geometry_losses(
             assets, xh_rec, cam_ext, batch["scene_idx"], cfg.contact_denom_offset,
-            prune_scene_points=cfg.prune_scene_points,
+            prune_scene_points=cfg.prune_scene_points, mesh=mesh,
         )
-        loss_contact = f_scene * cfg.weight_contact * raw_contact
+        loss_contact = share * (f_scene * cfg.weight_contact * raw_contact)
         loss_collision = f_scene * cfg.weight_collision * raw_collision
 
         total = loss_rec_t + loss_rec_p + loss_kl + loss_vposer + loss_contact + loss_collision

@@ -225,3 +225,46 @@ def test_probe_wrappers_take_twins_only_for_cpu_tensors():
                  lambda: gp.chained_gather(t, i), lambda: gp.relayout(t)):
         with pytest.raises(ValueError):  # neither cpu nor cuda: refused outright
             call()
+
+
+SCALE_OUT_MODULES = ["psi_tpu_torch.parallel", "psi_tpu_torch.parallel.mesh", "psi_tpu_torch.parallel.distributed",
+                     "psi_tpu_torch.parallel.launcher", "psi_tpu_torch.data.native_loader",
+                     "psi_tpu_torch.scripts.multiprocess_worker", "psi_tpu_torch.scripts.launch_sweep"]
+
+
+def test_scale_out_modules_are_in_the_walk_and_load_without_jax():
+    """The process-group layer, the native loader and the two scale-out
+    scripts are among the walked modules, and imported alone they leave jax,
+    flax, optax and psi_tpu out of sys.modules (and build nothing)."""
+    walked = {m.name for m in pkgutil.walk_packages([str(PKG)], prefix="psi_tpu_torch.")}
+    assert set(SCALE_OUT_MODULES) <= walked
+    code = (
+        "import sys, importlib\n"
+        f"for m in {SCALE_OUT_MODULES!r}: importlib.import_module(m)\n"
+        "import psi_tpu_torch.data.native_loader as nl\n"
+        "assert nl._lib is None\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_train_cli_num_devices_help_runs_with_jax_blocked():
+    """``python -m psi_tpu_torch.cli.train --num_devices 2 --help`` with every
+    import of jax, flax, optax or psi_tpu an error: exit code 0, and the help
+    says what --num_devices does."""
+    code = (
+        "import runpy, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'psi_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "sys.argv = ['psi_tpu_torch.cli.train', '--num_devices', '2', '--help']\n"
+        "runpy.run_module('psi_tpu_torch.cli.train', run_name='__main__')\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "--num_devices" in r.stdout and "gloo" in r.stdout and "NCCL" in r.stdout

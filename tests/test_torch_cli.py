@@ -304,8 +304,12 @@ def test_train_reads_the_newest_hdf5_files(tmp_path, monkeypatch, only_vircam):
 
 
 def test_train_refuses_more_than_one_device(tmp_path):
-    with pytest.raises(SystemExit, match="A13"):
-        train.main(["--synthetic", "--num_devices", "2", "--save_dir", str(tmp_path)] + CPU)
+    """More ranks than cards: refused before any rank starts, naming both
+    counts (``--device cpu`` would run them as CPU ranks instead)."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    ask = max(2, have + 1)
+    with pytest.raises(SystemExit, match=f"--num_devices {ask} asks for {ask} NVIDIA cards, {have} present"):
+        train.main(["--synthetic", "--num_devices", str(ask), "--save_dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
 
 
