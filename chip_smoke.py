@@ -142,6 +142,32 @@ and then the training path and the Stage-2 sampler:
               process. Launch counts and wall of each entry point; finite
               scores.
 
+ and then scale-out and the VPoser prior:
+
+ 17. native   the C++ batch loader (g++-built) in front of TrainOP: one
+              gated epoch, every sample once, the first step's metrics equal
+              to the same rows through make_train_step
+ 18. dist     an NCCL group of one in this process, then two gloo ranks
+              sharing the card (multiprocess_worker.spawn): the sharded
+              generate+fit, engine and data-parallel step against the
+              unsharded calls
+ 19. vposer   VPoserTrainer on the card at VPoserTrainConfig() (width 512,
+              latentD 32, 21 joints, batch 256; the 10475-vertex, 55-joint
+              body at 'high' LBS) on a make_synthetic_amass corpus of 8192 /
+              1024 / 1024 frames: evaluate(), then perform_training(2), the
+              eval loss falling at each epoch; ms a step (median after the
+              first), steps/s, one profiled step's device launches and busy
+              share, peak memory; load_best replays the best eval loss within
+              1e-3 and load_vposer(work_dir) decodes 256 latents equal in bits;
+              one step at batch 16 card vs CPU (same weights, injected noise
+              and dropout masks: losses 1e-4, parameters' median relative
+              difference 1e-5, the largest printed); vis_results' 3 x 4 PNG
+              grid; one rasterize_mesh of the body at 256^2 timed, its depth
+              and labels equal to the CPU's in >= 99.5% of pixels and within
+              1 mm where both hit; BodyModelWithPoser.randomize_pose and
+              untangle_interpenetrations() lowering the proxy penalty; K1/K2/K3
+              launched 0/0/0 in the phase; the phase's seconds.
+
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
 result. The last three lines are the per-kernel JSON, the nvidia-smi
@@ -160,6 +186,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -1848,6 +1875,233 @@ def check_dist(dev, model, model_cpu, assets, assets_cpu, xs, cam_int, max_d, ca
     return out
 
 
+VPOSER_BM_KW = dict(num_verts=10475, num_joints=55, seed=SEED)  # synthetic_smplx at SMPL-X's width
+VPOSER_FRAMES = (8192, 1024)  # make_synthetic_amass: train frames; vald and test frames each
+VPOSER_EPOCHS = 2
+VPOSER_CROSS_BATCH = 16
+VPOSER_LOSS_REL_TOL = 1e-4  # one step card vs CPU, same weights, noise and masks: the losses
+VPOSER_PARAM_MEDIAN_TOL = 1e-5  # ... and the updated parameters' median relative difference (largest printed)
+VPOSER_RELOAD_REL_TOL = 1e-3  # load_best replays the recorded best eval loss (scripts/vposer_scale_run.py)
+VPOSER_HW = 256  # vis_results' and the timed rasterization's image side
+VPOSER_RASTER_SHARE = 0.995  # pixels whose depth and label equal the CPU's
+VPOSER_RASTER_MM = 1e-3 + 1e-6  # depth where both hit: within one 1-mm quantum
+
+
+def _vposer_param_rels(a, b) -> list:
+    import torch
+
+    return [(torch.linalg.vector_norm((a[k] - b[k]).double()) / (torch.linalg.vector_norm(b[k].double()) + 1e-30)
+             ).item() for k in b if b[k].is_floating_point()]
+
+
+def check_vposer(dev, kernels, smi: str, workdir: Path):
+    """Phase 19: the VPoser prior's trainer at full width, its snapshots, one step card vs CPU, the renderer
+    behind vis_results, and the body-model untangler; returns its record."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.body.body_model import BodyModelWithPoser
+    from psi_tpu_torch.body.smplx_model import synthetic_smplx
+    from psi_tpu_torch.body.vposer import vposer_decode
+    from psi_tpu_torch.data.amass import make_synthetic_amass
+    from psi_tpu_torch.nn import layers
+    from psi_tpu_torch.scripts.profile_fit import _device_us, device_events
+    from psi_tpu_torch.train.vposer_trainer import VPoserTrainConfig, VPoserTrainer
+    from psi_tpu_torch.utils.convert_torch import load_vposer
+    from psi_tpu_torch.utils.timing import cuda_ms
+    from psi_tpu_torch.viz.render import rasterize_mesh
+
+    out = {}
+    t_phase = time.time()
+    data = workdir / "amass"
+    make_synthetic_amass(str(data), n_train=VPOSER_FRAMES[0], n_val=VPOSER_FRAMES[1], seed=SEED)
+    bm = synthetic_smplx(**VPOSER_BM_KW)
+    cfg = VPoserTrainConfig()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = VPoserTrainer(str(workdir / "vposer_work"), cfg, str(data), bm, logger=lambda text: None)  # the card
+
+    # ---- training: evaluate, then perform_training(2), with each step timed and each evaluation kept
+    step_ms, evals = [], []
+    inner_step, inner_eval = tr._train_step, tr.evaluate
+
+    def timed_step(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        res = inner_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t) * 1e3)
+        return res
+
+    def kept_eval(split_name="vald"):
+        evals.append(inner_eval(split_name))
+        return evals[-1]
+
+    tr._train_step, tr.evaluate = timed_step, kept_eval
+    t0 = time.time()
+    tr.evaluate()
+    best = tr.perform_training(VPOSER_EPOCHS)
+    torch.cuda.synchronize()
+    out["train_s"] = time.time() - t0
+    tr._train_step, tr.evaluate = inner_step, inner_eval
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["eval_loss_total"] = [e["loss_total"] for e in evals]
+    out["eval"] = evals
+    out["steps"] = len(step_ms)
+    out["median_step_ms"] = statistics.median(step_ms[1:])
+    out["steps_per_s"] = 1e3 / out["median_step_ms"]
+    out["first_step_ms"] = step_ms[0]
+    curve = out["eval_loss_total"]
+    if len(curve) != VPOSER_EPOCHS + 1 or not all(np.isfinite(curve)) or not all(b < a for a, b in
+                                                                                  zip(curve, curve[1:])):
+        raise AssertionError(f"[vposer] the eval loss did not fall at every epoch: {curve}")
+    if out["steps"] != VPOSER_EPOCHS * (VPOSER_FRAMES[0] // cfg.batch_size):
+        raise AssertionError(f"[vposer] {out['steps']} steps in {VPOSER_EPOCHS} epochs")
+
+    # one step under the profiler: device launches and busy time
+    batch = next(tr.ds_train.batches(cfg.batch_size, np.random.default_rng(SEED + 70)))
+    pose = torch.from_numpy(batch).to(dev)
+    tr._train_step(pose, tr.epochs_completed)  # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        tr._train_step(pose, tr.epochs_completed)
+        torch.cuda.synchronize()
+        prof_ms = (time.time() - t0) * 1e3
+    events = device_events(prof)
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    if not busy_ms > 0:
+        raise AssertionError("[vposer] the profiled step shows no device time")
+    out.update(profiled_step_ms=prof_ms, busy_ms=busy_ms, busy_share=busy_ms / out["median_step_ms"],
+               device_launches=sum(e.count for e in events),
+               top=[{"name": e.key[:80], "ms": _device_us(e) / 1e3, "launches": e.count}
+                    for e in sorted(events, key=_device_us, reverse=True)[:5]])
+    log(f"[vposer] VPoserTrainer on the card at VPoserTrainConfig() (width {cfg.num_neurons}, latentD "
+        f"{cfg.latentD}, {cfg.num_joints} joints, batch {cfg.batch_size}; body {VPOSER_BM_KW['num_verts']} verts, "
+        f"{VPOSER_BM_KW['num_joints']} joints, 'high' LBS; {VPOSER_FRAMES[0]} / {VPOSER_FRAMES[1]} / "
+        f"{VPOSER_FRAMES[1]} frames): eval loss_total {' -> '.join(f'{v:.4f}' for v in curve)} over "
+        f"{VPOSER_EPOCHS} epochs (best {best:.4f}); {out['steps']} steps, first {out['first_step_ms']:.2f} ms, median "
+        f"after it {out['median_step_ms']:.3f} ms ({out['steps_per_s']:.2f} steps/s); {out['train_s']:.2f} s in all; "
+        f"peak device memory {out['peak_gb']:.4f} GB; on {smi}")
+    log(f"[vposer] one profiled step: {prof_ms:.2f} ms, {out['device_launches']} device launches, device busy "
+        f"{busy_ms:.3f} ms ({100 * out['busy_share']:.1f}% of the median step); largest: "
+        + "; ".join(f"{t['name']} {t['ms']:.3f} ms x{t['launches']}" for t in out["top"]))
+
+    # ---- reload: load_best replays the best eval loss; load_vposer decodes what the trainer's model decodes
+    recorded = tr.best_loss_total
+    tr.load_best()
+    replay = tr.evaluate()["loss_total"]
+    z = torch.randn((N_BODIES, cfg.latentD), generator=torch.Generator(device=dev).manual_seed(SEED + 71), device=dev)
+    tr.model.eval()
+    with torch.no_grad():
+        loaded = load_vposer(str(workdir / "vposer_work")).to(dev)
+        equal_bits = torch.equal(vposer_decode(loaded, z), vposer_decode(tr.model, z))
+    rel = abs(replay - recorded) / max(1.0, abs(recorded))
+    out.update(reload_recorded=recorded, reload_replay=replay, reload_rel=rel, load_vposer_equal_bits=equal_bits,
+               snapshot=os.path.basename(tr.best_model_fname))
+    log(f"[vposer] load_best {out['snapshot']}: recorded best {recorded:.6f}, replayed {replay:.6f} (rel "
+        f"{rel:.3e}, tol {VPOSER_RELOAD_REL_TOL}); load_vposer(work_dir) decodes {N_BODIES} latents equal in bits "
+        f"to the trainer's model in eval mode: {equal_bits}")
+    if not (rel <= VPOSER_RELOAD_REL_TOL and equal_bits):
+        raise AssertionError("[vposer] the best snapshot does not reload")
+
+    # ---- one step at batch 16, card vs CPU: the same weights, injected noise and dropout masks
+    small = dataclasses.replace(cfg, batch_size=VPOSER_CROSS_BATCH)
+    state = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    g = torch.Generator().manual_seed(SEED + 72)
+    eps = torch.randn((VPOSER_CROSS_BATCH, cfg.latentD), generator=g)
+    masks = [torch.rand((VPOSER_CROSS_BATCH, cfg.num_neurons), generator=g) < 0.9 for _ in range(2)]
+    cross_pose = torch.from_numpy(batch[:VPOSER_CROSS_BATCH])
+    real_mask = layers.dropout_mask
+    res = {}
+    try:
+        for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            feed = list(masks)
+            layers.dropout_mask = lambda shape, keep, gen, device: feed.pop(0).to(device)
+            t2 = VPoserTrainer(str(workdir / f"vposer_cross_{name}"), small, str(data), bm, logger=lambda text: None,
+                               device=d)
+            t2.model.load_state_dict(state)
+            t2.epochs_completed = 1
+            losses = t2._train_step(cross_pose.to(d), 1, eps=eps.to(d))
+            if feed:
+                raise AssertionError("[vposer] the step did not draw both dropout masks")
+            res[name] = ({k: float(v) for k, v in losses.items()},
+                         {k: v.detach().cpu() for k, v in t2.model.state_dict().items()})
+    finally:
+        layers.dropout_mask = real_mask
+    loss_rel = max(abs(res["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in res["cpu"][0].items())
+    rels = _vposer_param_rels(res["cuda"][1], res["cpu"][1])
+    out.update(cross_loss_rel=loss_rel, cross_param_median=statistics.median(rels), cross_param_max=max(rels),
+               cross_losses=res["cpu"][0])
+    log(f"[vposer] one step at batch {VPOSER_CROSS_BATCH}, card vs CPU, same weights, noise and dropout masks: "
+        f"losses max rel diff {loss_rel:.3e} (tol {VPOSER_LOSS_REL_TOL}); updated parameters and statistics, "
+        f"relative norm of the difference: median {out['cross_param_median']:.3e} (tol {VPOSER_PARAM_MEDIAN_TOL}), "
+        f"largest {out['cross_param_max']:.3e}")
+    if not (loss_rel <= VPOSER_LOSS_REL_TOL and out["cross_param_median"] <= VPOSER_PARAM_MEDIAN_TOL):
+        raise AssertionError("[vposer] the card's step differs from the CPU's")
+
+    # ---- rendering: vis_results' grid, and one timed rasterization of the full body against the CPU's
+    t0 = time.time()
+    png = tr.vis_results(batch[:4], str(workdir / "vposer_vis.png"), n_show=4)
+    out["vis_s"] = time.time() - t0
+    if not (os.path.exists(png) and os.path.getsize(png) > 0):
+        raise AssertionError("[vposer] vis_results wrote no PNG")
+    with torch.no_grad():
+        verts = tr._decode_mesh(pose[:1])[0] + torch.tensor([0.0, 0.0, 2.5], device=dev)
+    f = 1.5 * VPOSER_HW
+    cam = torch.tensor([[f, 0, VPOSER_HW / 2], [0, f, VPOSER_HW / 2], [0, 0, 1]], device=dev)
+    labels = (torch.arange(verts.shape[0], device=dev) % 40) + 1
+    faces = bm.faces.to(dev)
+    raster = lambda v, fc, lb, c: rasterize_mesh(v, fc, lb, c, VPOSER_HW, VPOSER_HW)
+    out["raster_ms"] = cuda_ms(lambda: raster(verts, faces, labels, cam), reps=5)
+    dk, sk = (t.cpu() for t in raster(verts, faces, labels, cam))
+    t0 = time.time()
+    dc, sc = raster(verts.cpu(), faces.cpu(), labels.cpu(), cam.cpu())
+    out["raster_cpu_s"] = time.time() - t0
+    same = ((dk == dc) & (sk == sc)).double().mean().item()
+    both = (dk > 0) & (dc > 0)
+    depth_max = (dk - dc)[both].abs().max().item() if both.any() else 0.0
+    out.update(raster_equal_share=same, raster_depth_max=depth_max, raster_covered=(dc > 0).double().mean().item())
+    log(f"[vposer] vis_results 3 x 4 grid at {VPOSER_HW}^2 -> {os.path.basename(png)} "
+        f"({os.path.getsize(png)} bytes) in {out['vis_s']:.2f} s; rasterize_mesh of the {verts.shape[0]}-vertex, "
+        f"{faces.shape[0]}-face body at {VPOSER_HW}^2: {out['raster_ms']:.3f} ms on the card (CPU "
+        f"{out['raster_cpu_s']:.2f} s); {100 * out['raster_covered']:.2f}% of pixels covered; depth and label equal "
+        f"to the CPU's in {100 * same:.3f}% of pixels (tol {100 * VPOSER_RASTER_SHARE}%), depth where both hit within "
+        f"{depth_max:.3e} m (tol {VPOSER_RASTER_MM})")
+    if not (same >= VPOSER_RASTER_SHARE and depth_max <= VPOSER_RASTER_MM and out["raster_covered"] > 0):
+        raise AssertionError("[vposer] the card's rasterization differs from the CPU's")
+
+    # ---- the body model: randomize_pose, then untangle_interpenetrations at its defaults
+    bmp = BodyModelWithPoser(bm, tr.model)  # the card
+    bmp.randomize_pose(torch.Generator(device=dev).manual_seed(SEED + 73))
+    objective = bmp._untangle_objective()
+    with torch.no_grad():
+        before = objective(bmp.poZ_body).item()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bmp.untangle_interpenetrations()
+    torch.cuda.synchronize()
+    out["untangle_s"] = time.time() - t0
+    with torch.no_grad():
+        after = objective(bmp.poZ_body).item()
+    out.update(untangle_before=before, untangle_after=after)
+    log(f"[vposer] BodyModelWithPoser on the card: randomize_pose, untangle_interpenetrations() at its defaults "
+        f"(L-BFGS, 30 iterations, 512 vertices, radius 0.04) in {out['untangle_s']:.3f} s: proxy objective "
+        f"{before:.6f} -> {after:.6f}")
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError("[vposer] the untangler did not lower the penalty")
+
+    out["launches"] = {k.name: k.launches for k in kernels}
+    out["phase_s"] = time.time() - t_phase
+    log(f"[vposer] K1/K2/K3 launches during the phase {out['launches']} (want 0/0/0: 'high' LBS, no chamfer); "
+        f"the phase {out['phase_s']:.2f} s; on {smi}")
+    check_launches("[vposer] the phase", out["launches"], want_launches(kernels, 0, 0, 0))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1863,7 +2117,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-18 on card ``dev``; raises on the first failure."""
+    """Phases 1-19 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -2061,6 +2315,13 @@ def smoke(dev) -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # ---- 19. the VPoser prior's trainer, the renderer behind vis_results, the body-model wrappers
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_vposer_"))
+    try:
+        vposer = check_vposer(dev, kernels, smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     # ---- the record: each kernel with the launch count of its path's run
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
@@ -2081,7 +2342,7 @@ def smoke(dev) -> None:
         row["launches_by_path"].update(
             dist_nccl_world1_generate_fit=dist_rec["nccl_world1"]["launches"][k.name],
             **{f"dist_gloo_rank{r}_{c}": p["launches"][c][k.name] for r, p in enumerate(dist_rec["gloo_two_ranks"]["ranks"])
-               for c in ("genfit", "engine", "train")})
+               for c in ("genfit", "engine", "train")}, vposer_phase=vposer["launches"][k.name])
     rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"],
                                        cli_train_s1=cli["launches"]["train_s1"][NN_ARGMIN.name],
                                        native_train_s1=native["k3_launches"])
@@ -2093,7 +2354,7 @@ def smoke(dev) -> None:
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,
                     "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve, "cli": cli,
-                    "native": native, "dist": dist_rec}))
+                    "native": native, "dist": dist_rec, "vposer": vposer}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,7 +28,10 @@ results:
   BatchNorm buffers after the last; both gates open) and ``trainop``
   (``TrainOP(mesh=)`` for the spec's epochs from a
   ``SyntheticBatchGenerator``, into ``save_dir`` with ``{rank}`` filled in);
-  each on its own ``assets`` or else the spec's.
+  each on its own ``assets`` or else the spec's; ``vposer_epochs``
+  (``VPoserTrainer(mesh=)`` on the spec's body model and prepared dataset,
+  from the seed's weights, into ``work_dir`` with ``{rank}`` filled in: the
+  losses of each ``train_epoch`` and ``evaluate``, the state dict after).
 
 The spec is unpickled: pass only a file this program's caller wrote.
 """
@@ -163,8 +166,21 @@ def _trainop(call: Dict, spec: Dict, mesh, device) -> Dict:
     return {"last_metrics": last, "state_dict": op.model.state_dict()}
 
 
+def _vposer_epochs(call: Dict, spec: Dict, mesh, device) -> Dict:
+    from psi_tpu_torch.train.vposer_trainer import VPoserTrainer
+
+    tr = VPoserTrainer(call["work_dir"].format(rank=mesh.rank), call["cfg"], call["dataset_dir"], call["body_model"],
+                       mesh=mesh)
+    epochs = []
+    for _ in range(call["epochs"]):
+        tr.epochs_completed += 1
+        epochs.append({"train": tr.train_epoch(), "eval": tr.evaluate()})
+    return {"epochs": epochs, "state_dict": tr.model.state_dict()}
+
+
 CALLS = {"fit_step": _fit_call, "generate_fit_step": _fit_call, "generate_fit_rows": _fit_call,
-         "engine": _engine_call, "train_steps": _train_steps, "trainop": _trainop}
+         "engine": _engine_call, "train_steps": _train_steps, "trainop": _trainop,
+         "vposer_epochs": _vposer_epochs}
 
 
 def run_rank(out_dir: str, mode: str, rank: int, world: int, device: str, backend: Optional[str] = None) -> None:

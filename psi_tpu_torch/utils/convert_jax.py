@@ -10,7 +10,7 @@ hands the numpy arrays here; this module never imports jax. Layouts:
   flattens NCHW (the reference's order), so fc's input columns are
   permuted from (h, w, c) to (c, h, w) order.
 
-``cvae_s{1,2}_to_jax`` and ``grads_to_jax`` go the other way, so a test can
+``cvae_s{1,2}_to_jax``, ``vposer_to_jax`` and ``grads_to_jax`` go the other way, so a test can
 hold the port's parameters, running statistics and gradients against
 psi_tpu's trees leaf by leaf.
 """
@@ -260,18 +260,41 @@ def grads_to_jax(model: nn.Module) -> dict:
     return _model_params(model, _grad)
 
 
+_VPOSER_DENSE = ("fc1", "fc2", "mu", "logvar")
+_VPOSER_BN = ("bn1", "bn2")
+_VPOSER_DEC = ("fc1", "fc2", "out")
+
+
 @torch.no_grad()
 def vposer_from_jax(variables: Mapping[str, Any]) -> VPoser:
-    """psi_tpu VPoser variables (numpy) -> the port's eval-mode decoder."""
+    """psi_tpu VPoser variables (numpy) -> the port's VPoser, in eval mode.
+    The decoder always; the encoder's parameters when ``params`` holds them,
+    with both BatchNorms' running statistics from ``batch_stats`` (a
+    decoder-only tree leaves the encoder at its construction)."""
     params = variables["params"]
     num_neurons, = np.shape(params["dec_fc1"]["bias"])
     latentD = np.shape(params["dec_fc1"]["kernel"])[0]
     num_joints = np.shape(params["dec_out"]["bias"])[0] // 6
     vp = VPoser(num_neurons=num_neurons, latentD=latentD, num_joints=num_joints)
-    _load_dense(vp.bodyprior_dec_fc1, params["dec_fc1"])
-    _load_dense(vp.bodyprior_dec_fc2, params["dec_fc2"])
-    _load_dense(vp.bodyprior_dec_out, params["dec_out"])
+    for name in _VPOSER_DEC:
+        _load_dense(getattr(vp, f"bodyprior_dec_{name}"), params[f"dec_{name}"])
+    if "enc_fc1" in params:
+        for name in _VPOSER_DENSE:
+            _load_dense(getattr(vp, f"bodyprior_enc_{name}"), params[f"enc_{name}"])
+        for name in _VPOSER_BN:
+            _load_bn(getattr(vp, f"bodyprior_enc_{name}"), params[f"enc_{name}"],
+                     variables["batch_stats"][f"enc_{name}"])
     return vp.eval()
+
+
+def vposer_to_jax(vp: VPoser) -> dict:
+    """The port's VPoser as psi_tpu's variables {'params', 'batch_stats'}
+    (numpy, flax's layout), so psi_tpu's VPoser runs on the port's weights."""
+    params = {f"dec_{n}": _dump_dense(getattr(vp, f"bodyprior_dec_{n}"), _value) for n in _VPOSER_DEC}
+    params.update({f"enc_{n}": _dump_dense(getattr(vp, f"bodyprior_enc_{n}"), _value) for n in _VPOSER_DENSE})
+    params.update({f"enc_{n}": _dump_bn(getattr(vp, f"bodyprior_enc_{n}"), _value) for n in _VPOSER_BN})
+    stats = {f"enc_{n}": _bn_stats(getattr(vp, f"bodyprior_enc_{n}")) for n in _VPOSER_BN}
+    return {"params": params, "batch_stats": stats}
 
 
 def smplx_from_numpy(parents, **arrays) -> SMPLXModel:

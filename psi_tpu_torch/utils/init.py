@@ -23,6 +23,6 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
                 m.weight.copy_(torch.rand(m.weight.shape, generator=gen) * 2 * bound - bound)
                 if m.bias is not None:
                     m.bias.copy_(torch.rand(m.bias.shape, generator=gen) * 2 * bound - bound)
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
                 m.reset_parameters()
     return module

@@ -61,7 +61,7 @@ def test_scripts_and_eval_load_without_jax():
 
 @pytest.mark.parametrize("script", ["profile_vmem_gather", "profile_gather", "profile_sdf", "profile_fit",
                                     "tune_skin_fwd", "tune_gather_probes", "tune_chamfer_nn", "profile_train",
-                                    "soak_serve", "bench_serve_gen"])
+                                    "soak_serve", "bench_serve_gen", "vposer_scale_run"])
 def test_profiling_entry_points_fail_without_a_card(script):
     """A measurement never falls back to the CPU."""
     r = _run(["-m", f"psi_tpu_torch.scripts.{script}"], ROOT)
@@ -268,3 +268,62 @@ def test_train_cli_num_devices_help_runs_with_jax_blocked():
     r = _run(code, ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "--num_devices" in r.stdout and "gloo" in r.stdout and "NCCL" in r.stdout
+
+
+VPOSER_SLICE_MODULES = ["psi_tpu_torch.utils.tools", "psi_tpu_torch.utils.profiling", "psi_tpu_torch.data.amass",
+                        "psi_tpu_torch.train.vposer_trainer", "psi_tpu_torch.body.body_model",
+                        "psi_tpu_torch.viz", "psi_tpu_torch.viz.colors", "psi_tpu_torch.viz.render",
+                        "psi_tpu_torch.viz.show_results", "psi_tpu_torch.viz.mesh_viewer",
+                        "psi_tpu_torch.scripts.vposer_scale_run"]
+
+
+def test_vposer_slice_modules_are_in_the_walk_and_load_without_jax():
+    """The VPoser trainer, the body-model wrappers and the renderer are among
+    the walked modules, and imported alone they leave jax, flax, optax and
+    psi_tpu out of sys.modules."""
+    walked = {m.name for m in pkgutil.walk_packages([str(PKG)], prefix="psi_tpu_torch.")}
+    assert set(VPOSER_SLICE_MODULES) <= walked
+    code = (
+        "import sys, importlib\n"
+        f"for m in {VPOSER_SLICE_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_vposer_slice_entry_points_take_the_first_card_and_raise_without_one(tmp_path, monkeypatch):
+    """device=None is cuda:0 when a card is there; without one VPoserTrainer,
+    BodyModel, BodyModelWithPoser, MeshViewer and render_color raise rather
+    than fall back to the CPU."""
+    import numpy as np
+
+    from psi_tpu_torch.body.body_model import BodyModel, BodyModelWithPoser
+    from psi_tpu_torch.body.smplx_model import synthetic_smplx
+    from psi_tpu_torch.body.vposer import synthetic_vposer
+    from psi_tpu_torch.data.amass import make_synthetic_amass
+    from psi_tpu_torch.train.vposer_trainer import VPoserTrainConfig, VPoserTrainer
+    from psi_tpu_torch.utils.tools import resolve_device
+    from psi_tpu_torch.viz.mesh_viewer import MeshViewer
+    from psi_tpu_torch.viz.show_results import render_color
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None, "x") == torch.device("cuda", 0)
+    assert resolve_device("cpu", "x") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make_synthetic_amass(str(tmp_path / "data"), n_train=8, n_val=8)
+    smplx = synthetic_smplx(num_verts=30, num_joints=22)
+    calls = {
+        "VPoserTrainer": lambda: VPoserTrainer(str(tmp_path / "w"), VPoserTrainConfig(num_neurons=8, batch_size=4),
+                                               str(tmp_path / "data"), smplx),
+        "BodyModel": lambda: BodyModel(smplx),
+        "BodyModelWithPoser": lambda: BodyModelWithPoser(smplx, synthetic_vposer(0)),
+        "MeshViewer": lambda: MeshViewer(width=8, height=8),
+        "render_color": lambda: render_color(np.zeros((2, 3)), np.zeros((2, 3)), np.eye(3), 4, 4),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="NVIDIA card"):
+            call()
+    assert not (tmp_path / "w").exists()
