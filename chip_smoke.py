@@ -168,6 +168,36 @@ and then the training path and the Stage-2 sampler:
               untangle_interpenetrations() lowering the proxy penalty; K1/K2/K3
               launched 0/0/0 in the phase; the phase's seconds.
 
+ and then the data production in front of the main path and the last
+ entry points:
+
+ 20. snapshots produce_virtualcam_snapshots on scene 0 of the main path's
+              registry (20k points, labelled floor or not by height) over 8
+              body frames at psi_tpu's defaults (480 x 640, up to 30 cameras
+              a frame) into an in-memory writer with SnapshotHDF5Writer's
+              append/close (this machine has no h5py): snapshots rendered
+              and written, ms a snapshot, one snapshot's device launches
+              under torch.profiler, K1/K2/K3 0/0/0; the same call with
+              device='cpu' on the first frame: the same rows kept with
+              cam_ext equal in bits, that frame's cameras rendered again on
+              both devices with raw maps equal in >= 99.5% of pixels,
+              canvases within 1e-6 beyond what the differing raw pixels
+              carry, body72 within 1e-5; that frame's rows decoded on the
+              card and mapped by inv(cam_ext) onto the frame's world body
+              within 1 mm, and off by more than 0.1 m by cam_ext as stored;
+              a triangulated room (2,028 triangles) through
+              rasterize_mesh, card vs CPU at >= 99.5%, timed; the first
+              written snapshot's canvases, intrinsics and max_d into the
+              N=256 production generate+fit in scene 0 with the row's
+              cam_ext inverted (the row stores world->camera): 20/20/6,
+              finite, wall beside [slice]'s; the timed fit's non-collision
+              score (eval) above its samples' (the total loss is logged:
+              the first Adam update raises it, as psi_tpu's does); then
+              scripts.demo --n_samples 16 (21/20/7: fit_bodies' metrics
+              pass), scripts.sample_body_pose, scripts.bench_sample and
+              scripts.bench_train --reps 10 for s1 (K3 11 times), each
+              with its output logged.
+
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
 result. The last three lines are the per-kernel JSON, the nvidia-smi
@@ -2102,6 +2132,333 @@ def check_vposer(dev, kernels, smi: str, workdir: Path):
     return out
 
 
+SNAP_FRAMES = 8  # body frames of the production call
+SNAP_HW = (480, 640)  # psi_tpu's render_hw default
+SNAP_CAMS = 30  # psi_tpu's max_cams_per_frame default
+SNAP_FLOOR_SHARE = 0.1  # the lowest tenth of the cloud's height is labelled floor (2), the rest other (5)
+SNAP_EQUAL_SHARE = 0.995  # raw depth and seg pixels equal card vs CPU (as [vposer]'s rasterization)
+SNAP_CANVAS_TOL = 1e-6  # canvases card vs CPU, beside what the raw pixels that differ carry (2 d / max)
+SNAP_BODY_TOL = 1e-5  # stored body vectors card vs CPU
+SNAP_FRAME_TOL = 1e-3  # m: a row's body mapped by inv(cam_ext) vs the frame's world body
+SNAP_FRAME_WRONG = 0.1  # m: the least error of the same body mapped by cam_ext as stored
+SNAP_ROOM_GRID = 13  # quads a side of each face of the rasterized room: 6 x 13^2 x 2 = 2028 triangles
+
+
+class _SnapshotRows:
+    """SnapshotHDF5Writer's append/close, keeping the rows in memory (the
+    card's machine has no h5py; the HDF5 side is held on the CPU by
+    tests/test_torch_snapshots.py)."""
+
+    def __init__(self):
+        self.rows, self.closed = [], False
+
+    def append(self, *row):
+        self.rows.append(row)
+
+    def close(self):
+        self.closed = True
+
+
+def snapshot_frames(rng, s_min, s_max, n: int):
+    """n body frames (VPoser latent pose) standing about 1 m over the cloud's floor near its middle."""
+    import numpy as np
+
+    mid = 0.5 * (s_min + s_max)
+    frames = []
+    for _ in range(n):
+        transl = np.array([[mid[0], mid[1], s_min[2] + 1.0]]) + rng.normal(0, 0.3, (1, 3))
+        frames.append({"transl": transl.astype(np.float32),
+                       "global_orient": (rng.normal(size=(1, 3)) * 0.3).astype(np.float32),
+                       "betas": np.zeros((1, 10), np.float32),
+                       "body_pose": (rng.normal(size=(1, 32)) * 0.3).astype(np.float32),
+                       "left_hand_pose": np.zeros((1, 12), np.float32),
+                       "right_hand_pose": np.zeros((1, 12), np.float32)})
+    return frames
+
+
+def room_mesh(s_min, s_max, n: int = SNAP_ROOM_GRID):
+    """The box (s_min, s_max) as six faces of n x n quads, two triangles each;
+    labels per vertex: floor 2, ceiling 22, walls 1."""
+    import numpy as np
+
+    t = np.linspace(0.0, 1.0, n + 1)
+    u, v = (a.reshape(-1) for a in np.meshgrid(t, t, indexing="ij"))
+    lo, hi = np.asarray(s_min, np.float64), np.asarray(s_max, np.float64)
+    verts, faces, labels = [], [], []
+    for axis in range(3):
+        for side, label in ((0, 2 if axis == 2 else 1), (1, 22 if axis == 2 else 1)):
+            p = np.empty((len(u), 3))
+            a, b = [i for i in range(3) if i != axis]
+            p[:, axis] = hi[axis] if side else lo[axis]
+            p[:, a] = lo[a] + u * (hi[a] - lo[a])
+            p[:, b] = lo[b] + v * (hi[b] - lo[b])
+            off = sum(len(x) for x in verts)
+            for i in range(n):
+                for j in range(n):
+                    q = off + i * (n + 1) + j
+                    faces += [[q, q + n + 1, q + 1], [q + 1, q + n + 1, q + n + 2]]
+            verts.append(p)
+            labels.append(np.full(len(p), label))
+    return (np.concatenate(verts).astype(np.float32), np.asarray(faces, np.int32),
+            np.concatenate(labels).astype(np.int32))
+
+
+def _raw_agreement(a, b) -> tuple:
+    """(share of pixels equal in both maps, depth's and seg's largest difference)."""
+    import numpy as np
+
+    same = float(np.mean((a[0] == b[0]) & (a[1] == b[1])))
+    return same, float(np.abs(a[0] - b[0]).max()), float(np.abs(a[1] - b[1]).max())
+
+
+def check_snapshots(dev, model, assets, registry, kernels, slice_wall: float, smi: str, workdir: Path):
+    """Phase 20: snapshot production on scene 0 at psi_tpu's defaults, one frame of it card vs CPU, one
+    rasterized snapshot card vs CPU, a snapshot's canvases into the production generate+fit, then the demo,
+    the pose example and the two benches; returns its record."""
+    import contextlib
+    import copy
+    import io
+
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.body.decode import body_vec_to_verts
+    from psi_tpu_torch.data import snapshots
+    from psi_tpu_torch.eval import collision_contact_scores
+    from psi_tpu_torch.fit.fitting import make_generate_fit_step
+    from psi_tpu_torch.gen.sample import generate_bodies
+    from psi_tpu_torch.geometry.bodyvec import body_params_parse
+    from psi_tpu_torch.scripts import bench_sample, bench_train, demo, sample_body_pose
+    from psi_tpu_torch.scripts.profile_fit import _device_us, device_events
+    from psi_tpu_torch.utils.config import FitConfig
+    from psi_tpu_torch.utils.precision import strict_f32
+    from psi_tpu_torch.utils.timing import cuda_ms
+    from psi_tpu_torch.viz.render import rasterize_mesh
+
+    out = {}
+    t_phase = time.time()
+    verts = registry.verts_stack[0, : registry.n_verts[0]]
+    s_min, s_max = verts.min(axis=0), verts.max(axis=0)
+    labels = np.where(verts[:, 2] < s_min[2] + SNAP_FLOOR_SHARE * (s_max[2] - s_min[2]), 2, 5).astype(np.int32)
+    frames = snapshot_frames(np.random.default_rng(SEED + 80), s_min, s_max, SNAP_FRAMES)
+
+    # ---- the production call on the card: 8 frames x up to 30 cameras at 480 x 640
+    rows = _SnapshotRows()
+    n, launches, wall, peak = counted(kernels, lambda: snapshots.produce_virtualcam_snapshots(
+        verts, labels, frames, assets.smplx, assets.vposer, rows, sceneid=0, render_hw=SNAP_HW,
+        max_cams_per_frame=SNAP_CAMS, seed=SEED, device=dev))
+    # the candidate cameras, drawn as the call draws them (host numpy; a frame's draws precede the next frame's)
+    rng = np.random.default_rng(SEED)
+    planes = snapshots.room_box_planes(s_min, s_max)
+    cams = [snapshots.get_new_cams(planes, s_min, s_max, np.asarray(f["transl"]).reshape(3), rng=rng,
+                                   max_cams=SNAP_CAMS) for f in frames]
+    rendered = sum(len(c) for c in cams)
+    out.update(written=n, rendered=rendered, candidates_max=SNAP_FRAMES * SNAP_CAMS, wall_s=wall,
+               s_per_snapshot=wall / rendered, s_per_written=wall / max(n, 1), peak_gb=peak, launches=launches,
+               frames=SNAP_FRAMES, hw=list(SNAP_HW), scene_points=int(len(verts)))
+    log(f"[snapshots] produce_virtualcam_snapshots on scene 0 ({len(verts)} points, floor the lowest "
+        f"{SNAP_FLOOR_SHARE:.0%} of its height) over {SNAP_FRAMES} frames at {SNAP_HW[0]}x{SNAP_HW[1]}, up to "
+        f"{SNAP_CAMS} cameras a frame: {rendered} rendered, {n} written (not occluded) in {wall:.3f} s = "
+        f"{out['s_per_snapshot'] * 1e3:.2f} ms a rendered snapshot, {out['s_per_written'] * 1e3:.2f} ms a written "
+        f"one; peak device memory {peak:.4f} GB; K1/K2/K3 {launches}; on {smi}")
+    check_launches("[snapshots] production", launches, want_launches(kernels, 0, 0, 0))
+    if not (n == len(rows.rows) > 0 and rendered <= SNAP_FRAMES * SNAP_CAMS):
+        raise AssertionError(f"[snapshots] {n} rows written of {rendered} rendered")
+    for depth, seg, body72, cam_ext, cam_int, max_d, sceneid in rows.rows:
+        if not (depth.shape == seg.shape == (128, 128) and body72.shape == (72,) and np.isfinite(body72).all()
+                and np.isfinite(depth).all() and 0 < max_d <= 6.0 and sceneid == 0):
+            raise AssertionError("[snapshots] a written row is malformed")
+
+    # device launches and busy time of one snapshot (render, readback; the preprocessing is the host's)
+    vt = torch.as_tensor(verts, device=dev)
+    lt = torch.as_tensor(labels, device=dev)
+    cam_int = rows.rows[0][4]
+    one = lambda: snapshots.render_scene_snapshot(vt, lt, cams[0][0], cam_int, *SNAP_HW, device=dev)
+    one()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        one()
+        torch.cuda.synchronize()
+        out["profiled_snapshot_ms"] = (time.time() - t0) * 1e3
+    events = device_events(prof)
+    out["device_launches_a_snapshot"] = sum(e.count for e in events)
+    out["device_busy_ms_a_snapshot"] = sum(_device_us(e) for e in events) / 1e3
+    log(f"[snapshots] one snapshot under torch.profiler: {out['profiled_snapshot_ms']:.3f} ms, "
+        f"{out['device_launches_a_snapshot']} device launches (kernels and copies), device busy "
+        f"{out['device_busy_ms_a_snapshot']:.3f} ms")
+
+    # ---- card vs CPU on frame 0: the same call with device='cpu' keeps the same rows with the same cameras;
+    # frame 0's cameras rendered again on both devices (untimed) give the raw maps behind those rows
+    cpu = torch.device("cpu")
+    rows_cpu = _SnapshotRows()
+    smplx_cpu, vposer_cpu = assets.smplx.to(cpu), copy.deepcopy(assets.vposer).to(cpu)
+    t0 = time.time()
+    n_cpu = snapshots.produce_virtualcam_snapshots(verts, labels, frames[:1], smplx_cpu, vposer_cpu, rows_cpu,
+                                                   sceneid=0, render_hw=SNAP_HW, max_cams_per_frame=SNAP_CAMS,
+                                                   seed=SEED, device="cpu")
+    cpu_frame_s = time.time() - t0
+    cams0 = cams[0]
+    key = {np.linalg.inv(np.asarray(c, np.float64)).astype(np.float32).tobytes(): i for i, c in enumerate(cams0)}
+    rows0 = [r for r in rows.rows if r[3].tobytes() in key]
+    idx_card = [key[r[3].tobytes()] for r in rows0]
+    idx_cpu = [key.get(r[3].tobytes(), -1) for r in rows_cpu.rows]
+    cams_equal = len(rows0) == len(rows_cpu.rows) and all(np.array_equal(a[3], b[3]) for a, b in zip(rows0, rows_cpu.rows))
+    again = {d: [snapshots.render_scene_snapshot(verts, labels, c, cam_int, *SNAP_HW, device=d) for c in cams0]
+             for d in (dev, "cpu")}
+    agree = [_raw_agreement((a["depth_raw"], a["seg_raw"]), (b["depth_raw"], b["seg_raw"]))
+             for a, b in zip(again[dev], again["cpu"])]
+    share = min(a[0] for a in agree)
+    canvas_excess, body_diff, replay_diff = 0.0, 0.0, 0.0
+    for r_card, r_cpu, i in zip(rows0, rows_cpu.rows, idx_cpu):
+        sk, sc = again[dev][i], again["cpu"][i]
+        replay_diff = max(replay_diff, float(np.abs(r_card[0] - sk["depth"]).max()),
+                          float(np.abs(r_card[1] - sk["seg"]).max()))
+        # data_preprocessing clamps depth at 6 m and labels at 41, then scales by the map's maximum to [-1, 1]
+        # and resizes (a convex combination): a raw pixel moved by d moves the canvas by at most 2 d / max
+        for a, b, raw_k, raw_c, cap in ((r_card[0], r_cpu[0], sk["depth_raw"], sc["depth_raw"], 6.0),
+                                        (r_card[1], r_cpu[1], sk["seg_raw"], sc["seg_raw"], 41.0)):
+            carried = 2 * float(np.abs(raw_k - raw_c).max()) / max(float(np.minimum(raw_c, cap).max()), 1e-6)
+            canvas_excess = max(canvas_excess, float(np.abs(a - b).max()) - carried)
+        body_diff = max(body_diff, float(np.abs(r_card[2] - r_cpu[2]).max()))
+    out["cross"] = dict(cpu_frame_s=cpu_frame_s, cameras=len(cams0), cameras_equal=cams_equal, rows_cpu=n_cpu,
+                        rows_card=len(idx_card), rows_equal=idx_card == idx_cpu, raw_equal_share_min=share,
+                        raw_depth_max=max(a[1] for a in agree), raw_seg_max=max(a[2] for a in agree),
+                        canvas_excess=canvas_excess, body_max=body_diff, replay_canvas_max=replay_diff)
+    c = out["cross"]
+    log(f"[snapshots] frame 0 card vs CPU (device='cpu', {cpu_frame_s:.2f} s): {len(cams0)} candidate cameras; "
+        f"rows kept card {idx_card} vs CPU {idx_cpu}, their cam_ext equal in bits {cams_equal}; the {len(cams0)} "
+        f"cameras rendered again: raw depth and seg equal in {100 * share:.3f}% of pixels at least (tol "
+        f"{100 * SNAP_EQUAL_SHARE}%), largest differences {c['raw_depth_max']:.3e} m, {c['raw_seg_max']:.0f}; the "
+        f"rows' canvases vs the card's render again {replay_diff:.3e}, card vs CPU beyond what differing raw pixels "
+        f"carry (2 d / max) {canvas_excess:.3e} (tol {SNAP_CANVAS_TOL}); body72 {body_diff:.3e} (tol {SNAP_BODY_TOL})")
+    if not (cams_equal and idx_card == idx_cpu and n_cpu == len(idx_cpu) > 0 and share >= SNAP_EQUAL_SHARE
+            and replay_diff <= SNAP_CANVAS_TOL and canvas_excess <= SNAP_CANVAS_TOL and body_diff <= SNAP_BODY_TOL):
+        raise AssertionError("[snapshots] the card's frame differs from the CPU's")
+
+    # ---- the camera frame on the card: a row's body decoded in its camera and mapped by the inverse of its
+    # cam_ext (world->camera, psi_tpu's convention for virtual cameras) is frame 0's world body; by cam_ext itself
+    # it is not
+    with torch.no_grad(), strict_f32():
+        decode = lambda x72, ext: body_vec_to_verts(
+            assets.smplx, assets.vposer, torch.as_tensor(np.asarray(x72, np.float32), device=dev).reshape(-1, 72),
+            torch.as_tensor(np.asarray(ext, np.float32), device=dev).reshape(-1, 4, 4))[0]
+        world = decode(body_params_parse(frames[0]).numpy(), np.eye(4))
+        x0 = np.stack([r[2] for r in rows0])
+        ext0 = np.stack([r[3] for r in rows0]).astype(np.float64)
+        inv_err = (decode(x0, np.linalg.inv(ext0)) - world).abs().amax().item()
+        raw_err = (decode(x0, ext0) - world).abs().amax().item()
+    out["camera_frame"] = dict(rows=len(rows0), inverted_max_m=inv_err, as_stored_max_m=raw_err)
+    log(f"[snapshots] frame 0's {len(rows0)} rows decoded on the card: mapped by inv(cam_ext) the body is frame "
+        f"0's world body within {inv_err:.3e} m (tol {SNAP_FRAME_TOL}); mapped by cam_ext as stored it is off by "
+        f"{raw_err:.3f} m (want > {SNAP_FRAME_WRONG} m)")
+    if not (inv_err <= SNAP_FRAME_TOL and raw_err > SNAP_FRAME_WRONG):
+        raise AssertionError("[snapshots] the rows' bodies and cameras do not place frame 0's body")
+
+    # ---- the mesh path: one snapshot of a triangulated room through rasterize_mesh, card vs CPU
+    room_v, room_f, room_l = room_mesh(s_min, s_max)
+    cam2world = cams0[0]
+    mesh_snap = lambda d: snapshots.render_scene_snapshot(room_v, room_l, cam2world, cam_int, *SNAP_HW,
+                                                          scene_faces=room_f, device=d)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        mk = mesh_snap(dev)
+        walls.append((time.time() - t0) * 1e3)
+    world2cam = torch.as_tensor(mk["cam_ext"], device=dev)
+    out["mesh"] = dict(triangles=int(len(room_f)), snapshot_ms=statistics.median(walls), snapshot_walls_ms=walls,
+                       raster_ms=cuda_ms(lambda: rasterize_mesh(
+                           torch.as_tensor(room_v, device=dev), torch.as_tensor(room_f, device=dev),
+                           torch.as_tensor(room_l, device=dev), torch.as_tensor(cam_int, device=dev), *SNAP_HW,
+                           cam_ext=world2cam), reps=5))
+    t0 = time.time()
+    mc = mesh_snap("cpu")
+    out["mesh"]["cpu_s"] = time.time() - t0
+    m_same, m_depth, m_seg = _raw_agreement((mk["depth_raw"], mk["seg_raw"]), (mc["depth_raw"], mc["seg_raw"]))
+    out["mesh"].update(equal_share=m_same, depth_max=m_depth, seg_max=m_seg,
+                       covered=float(np.mean(mc["depth_raw"] > 0)))
+    log(f"[snapshots] rasterized room ({len(room_f)} triangles) from frame 0's first camera at "
+        f"{SNAP_HW[0]}x{SNAP_HW[1]}: render_scene_snapshot {out['mesh']['snapshot_ms']:.2f} ms (median of 3), "
+        f"rasterize_mesh alone {out['mesh']['raster_ms']:.3f} ms on the card, CPU {out['mesh']['cpu_s']:.2f} s; "
+        f"{100 * out['mesh']['covered']:.2f}% of pixels covered; raw maps equal in {100 * m_same:.3f}% of pixels "
+        f"(tol {100 * SNAP_EQUAL_SHARE}%), largest differences {m_depth:.3e} m, {m_seg:.0f}")
+    if not (m_same >= SNAP_EQUAL_SHARE and out["mesh"]["covered"] > 0.5):
+        raise AssertionError("[snapshots] the card's rasterized snapshot differs from the CPU's")
+
+    # ---- into the main path: the first written snapshot's canvases, N=256 sampled and fitted in scene 0
+    depth, seg, _, cam_ext, row_int, max_d, _ = rows.rows[0]
+    xs = torch.from_numpy(np.stack([depth, seg], axis=-1)[None]).to(dev)
+    # the row's cam_ext is world->camera (psi_tpu's convention for virtual cameras); the fit maps camera-frame
+    # bodies into the scene with verts_transform(verts, cam_ext), so it is handed the camera->world inverse
+    cam2world = np.linalg.inv(cam_ext.astype(np.float64)).astype(np.float32)
+    cam_ext_n = torch.from_numpy(np.tile(cam2world[None], (N_BODIES, 1, 1))).to(dev)
+    scene_idx = torch.zeros(N_BODIES, dtype=torch.int64, device=dev)
+    run = make_generate_fit_step(model, assets, FitConfig.production(num_iter=NUM_ITER), N_BODIES, want_metrics=False)
+    args = (xs, torch.from_numpy(row_int[None]).to(dev), torch.tensor([max_d], device=dev), cam_ext_n, scene_idx)
+    # the latents drawn up front, so that the samples each fit starts from can be scored
+    eps = [torch.randn((N_BODIES, model.eps_d), generator=torch.Generator(device=dev).manual_seed(SEED + 90 + rep),
+                       device=dev) for rep in range(3)]
+    fits = [counted(kernels, lambda: run(*args, eps=e)) for e in eps]
+    (x72, _, hist), gf_launches, _, gf_peak = fits[0]
+    gf_walls = [f[2] for f in fits]
+    curve = hist.mean(dim=1).tolist()
+    out["generate_fit"] = dict(launches=gf_launches, walls_s=gf_walls, wall_s=statistics.median(gf_walls),
+                               slice_wall_s=slice_wall, loss=curve, peak_gb=gf_peak, max_d=float(max_d))
+    log(f"[snapshots] a written snapshot's canvases (max_d {float(max_d):.3f} m) -> HumanCVAES1 samples "
+        f"{N_BODIES} -> FitConfig.production(num_iter={NUM_ITER}) in scene 0 with the row's inverted cam_ext: launches "
+        f"{gf_launches}; mean total loss at iterations 0, 1, 4, 14, {NUM_ITER - 1}: "
+        f"{', '.join(f'{curve[i]:.6f}' for i in (0, 1, 4, 14, NUM_ITER - 1))}; walls "
+        f"{', '.join(f'{w:.4f}' for w in gf_walls)} s (median {out['generate_fit']['wall_s']:.4f} s; [slice] "
+        f"{slice_wall:.4f} s); peak {gf_peak:.4f} GB")
+    check_launches("[snapshots] generate+fit", gf_launches, want_launches(kernels, NUM_ITER, NUM_ITER, 6))
+    if x72.shape != (N_BODIES, 72) or not (torch.isfinite(x72).all() and torch.isfinite(hist).all()):
+        raise AssertionError("[snapshots] the snapshot-fed fit's bodies or losses are not finite")
+    # The samples sit in free space: the first Adam update raises the total (the L1-to-sample term starts at 0;
+    # psi_tpu's fit does the same, tests/test_torch_free_space_fit.py), so the total is logged, not held to
+    # fall. What the fit must do is take the bodies out of the scene: the timed fit's own samples and result,
+    # scored by the eval's collision_contact_scores
+    samples = generate_bodies(model, xs, args[1], args[2], N_BODIES, eps=eps[0])
+    scores = {name: collision_contact_scores(assets, x, cam_ext_n, scene_idx) for name, x in
+              (("samples", samples), ("fitted", x72))}
+    out["generate_fit"]["scores"] = {k: dict(non_collision=v[0], contact=v[1]) for k, v in scores.items()}
+    log(f"[snapshots] the timed fit's samples -> its bodies: non-collision {scores['samples'][0]:.6f} -> "
+        f"{scores['fitted'][0]:.6f}, contact {scores['samples'][1]:.6f} -> {scores['fitted'][1]:.6f}")
+    if not scores["fitted"][0] > scores["samples"][0]:
+        raise AssertionError(f"[snapshots] the fit did not take the bodies out of the scene: {scores}")
+
+    # ---- the last entry points, each on the card by default, with its output
+    out["scripts"] = {}
+
+    def script(name, fn, want, *argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res, got, wall, _ = counted(kernels, lambda: fn(*argv))
+        out["scripts"][name] = dict(wall_s=wall, launches=got, stdout=buf.getvalue().splitlines())
+        for line in buf.getvalue().splitlines():
+            log(f"[snapshots] {name} | {line}")
+        log(f"[snapshots] {name}: {wall:.2f} s, launches {got}")
+        check_launches(f"[snapshots] {name}", got, want)
+        return res
+
+    res = script("demo", demo.main, want_launches(kernels, NUM_ITER + 1, NUM_ITER, 7),
+                 ["--out", str(workdir / "demo"), "--n_samples", "16"])
+    if not (os.path.getsize(res["png"]) > 0 and np.isfinite([res["non_collision"], res["contact"],
+                                                               res["entropy"]]).all()):
+        raise AssertionError("[snapshots] the demo wrote no PNG or no finite scores")
+    res = script("sample_body_pose", sample_body_pose.main, want_launches(kernels, 0, 0, 0),
+                 ["--out", str(workdir / "poses.png")])
+    if not (os.path.getsize(workdir / "poses.png") > 0 and res["frames"].min() < 255):
+        raise AssertionError("[snapshots] sample_body_pose drew nothing")
+    out["bench_sample"] = script("bench_sample", bench_sample.main, want_launches(kernels, 0, 0, 0))
+    out["bench_train"] = script("bench_train", bench_train.main, want_launches(kernels, 0, 0, 11),
+                                ["--reps", "10", "--model_type", "s1"])
+    out["phase_s"] = time.time() - t_phase
+    log(f"[snapshots] the phase {out['phase_s']:.2f} s; on {smi}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2117,7 +2474,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-19 on card ``dev``; raises on the first failure."""
+    """Phases 1-20 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -2322,6 +2679,13 @@ def smoke(dev) -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # ---- 20. the snapshot production into the main path; the demo, the pose example and the two benches
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_snapshots_"))
+    try:
+        snaps = check_snapshots(dev, model, assets, registry, kernels, wall, smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     # ---- the record: each kernel with the launch count of its path's run
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
@@ -2342,7 +2706,9 @@ def smoke(dev) -> None:
         row["launches_by_path"].update(
             dist_nccl_world1_generate_fit=dist_rec["nccl_world1"]["launches"][k.name],
             **{f"dist_gloo_rank{r}_{c}": p["launches"][c][k.name] for r, p in enumerate(dist_rec["gloo_two_ranks"]["ranks"])
-               for c in ("genfit", "engine", "train")}, vposer_phase=vposer["launches"][k.name])
+               for c in ("genfit", "engine", "train")}, vposer_phase=vposer["launches"][k.name],
+            snapshots_generate_fit=snaps["generate_fit"]["launches"][k.name],
+            demo=snaps["scripts"]["demo"]["launches"][k.name])
     rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"],
                                        cli_train_s1=cli["launches"]["train_s1"][NN_ARGMIN.name],
                                        native_train_s1=native["k3_launches"])
@@ -2354,7 +2720,7 @@ def smoke(dev) -> None:
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,
                     "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve, "cli": cli,
-                    "native": native, "dist": dist_rec, "vposer": vposer}))
+                    "native": native, "dist": dist_rec, "vposer": vposer, "snapshots": snaps}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

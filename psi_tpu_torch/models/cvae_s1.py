@@ -84,6 +84,12 @@ class HumanCVAES1(SceneEncoder):
             mu, logvar = self.mu_enc(z), self.logvar_enc(z)
         return self._decode(reparam(mu, logvar, generator, eps), z_s), mu, logvar
 
+    def sample(self, x_s: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One prior draw per snapshot x_s [B, H, W, C] (cvae.py:499-512): the
+        latents [B, eps_d] are standard normals from ``generator``."""
+        z_s = self.encode_scene(x_s)
+        return self._decode(prior_draw(x_s.shape[0], self.eps_d, z_s, generator), z_s)
+
     def sample_with_eps(self, x_s: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         """Decode given latents eps [B, eps_d] against snapshots x_s [B, H, W, C]."""
         return self._decode(eps, self.encode_scene(x_s))

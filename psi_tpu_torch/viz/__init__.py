@@ -1,2 +1,2 @@
-"""Visualization: the software renderer, the mesh viewer and the result
-renderer (port of psi_tpu.viz; ``viz/sphere.py`` is not ported yet)."""
+"""Visualization: the software renderer, the mesh viewer, the result
+renderer and the icosphere helpers (port of psi_tpu.viz)."""

@@ -327,3 +327,26 @@ def test_vposer_slice_entry_points_take_the_first_card_and_raise_without_one(tmp
         with pytest.raises(RuntimeError, match="NVIDIA card"):
             call()
     assert not (tmp_path / "w").exists()
+
+
+SNAPSHOT_SLICE_MODULES = ["psi_tpu_torch.data.labelmap", "psi_tpu_torch.viz.sphere", "psi_tpu_torch.data.snapshots",
+                          "psi_tpu_torch.scripts.demo", "psi_tpu_torch.scripts.sample_body_pose",
+                          "psi_tpu_torch.scripts.bench_sample", "psi_tpu_torch.scripts.bench_train"]
+
+
+def test_snapshot_slice_modules_are_in_the_walk_and_load_without_jax_or_h5py():
+    """The snapshot production and the last entry points are among the walked
+    modules, and imported alone they leave jax, flax, optax, psi_tpu, h5py and
+    scipy out of sys.modules: the HDF5 writer and the .mat packer import them
+    when they run (the card's machine has no h5py)."""
+    walked = {m.name for m in pkgutil.walk_packages([str(PKG)], prefix="psi_tpu_torch.")}
+    assert set(SNAPSHOT_SLICE_MODULES) <= walked
+    code = (
+        "import sys, importlib\n"
+        f"for m in {SNAPSHOT_SLICE_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu', 'h5py', 'scipy'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = _run(code, ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -8,8 +8,9 @@ labels: exactly on tests/test_rasterize.py's analytic cases, and on
 camera transform's matmul may round differently); the splatter and the
 rendered images the same way (the result renderer and the trainer's grid:
 tests/test_torch_show_results.py). The fifth analytic case (a coarse plane is
-hole-free) is rasterized directly: psi_tpu reaches it through
-``data.snapshots.render_scene_snapshot``, which the port does not have yet.
+hole-free) is rasterized directly here; psi_tpu reaches it through
+``data.snapshots.render_scene_snapshot``, which tests/test_torch_snapshots.py
+holds to psi_tpu's on the same case.
 """
 
 import os
