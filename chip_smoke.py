@@ -198,6 +198,40 @@ and then the training path and the Stage-2 sampler:
               scripts.bench_train --reps 10 for s1 (K3 11 times), each
               with its output logged.
 
+and then the paths that had not run on the card before:
+
+ 21. exact    the reference-exact fit tier (FitConfig.exact(): a full pass
+              every iteration, 'high' LBS in strict f32, f32 grids) at
+              full width: scripts.profile_fused's six variants at
+              --groups 3 --reps 1 (refresh10 fast/fused on bf16 grids,
+              exact high/fast/fused, exact high unpruned: K3 at M=20000),
+              each with its launch counts asserted (0/0/6, 20/20/6, 0/0/20,
+              0/0/20, 20/20/20, 0/0/20), finite [256, 72] bodies, the
+              exact_high mean loss falling after Adam's first update; N=16
+              FitConfig.exact() card vs CPU (iteration-0 losses within 1e-4,
+              which TF32 would break; the fitted x72 within 2x the fit's own
+              sensitivity, measured on the card for inputs moved by 1e-6);
+              one exact_high call under torch.profiler (device busy, launches,
+              the ten largest device operations); profile_segments at 'fused'
+              and 'high' (20 iterations of each pass kind, launches
+              asserted); profile_refresh_cadence at --groups 3 --reps 1
+              (20/20/6, 20/20/6, 20/20/5); cli.fitting_proxe --exact on 300
+              written pickles in each of two scenes (one chunk a scene:
+              0/0/42), its files equal in bits to FittingOP.fitting_files
+              with the CLI's exact configuration
+ 22. soak     scripts.bench_train_native at its defaults: 6144 synthetic
+              samples packed for the native loader (807.7 MB), one warm-up
+              epoch and 3 timed epochs of scan-epoch TrainOP s1 at
+              TrainConfig's width (batch 32, chunk 32): 576 steps, K3 once a
+              step (warm-up included), every metric finite, the loss after
+              Adam's first update above the last; the timed run's first chunk
+              against the per-step loop from the same state (the first step
+              within 1e-5; cuDNN's default algorithms part the later ones);
+              steps/s, samples/s, the loader's occupancy; then, with
+              cudnn.deterministic, one-epoch runs of 1024 samples: the chunk
+              equal in bits to the per-step loop, and --stage_bf16's last loss
+              within 5% of f32 staging's
+
 Any failure raises, so the exit code is not 0. With no CUDA device, or
 run from a directory without the package, it fails before printing any
 result. The last three lines are the per-kernel JSON, the nvidia-smi
@@ -1461,6 +1495,25 @@ def write_cli_inputs(root: Path, rng):
     return proxe_root, dump_root
 
 
+def read_pickles(folder: Path) -> dict:
+    """Every body_gen_*.pkl under ``folder``, by its path relative to it."""
+    import pickle
+
+    recs = {}
+    for p in sorted(folder.rglob("body_gen_*.pkl")):
+        with open(p, "rb") as f:
+            recs[str(p.relative_to(folder))] = pickle.load(f)
+    return recs
+
+
+def same_bits_records(a: dict, b: dict) -> bool:
+    """The same files, each with the same keys and equal arrays."""
+    import numpy as np
+
+    return a.keys() == b.keys() and all(
+        a[n].keys() == b[n].keys() and all(np.array_equal(a[n][k], b[n][k]) for k in a[n]) for n in a)
+
+
 def check_cli(dev, kernels, smi: str):
     """Phase 16: the reference's entry points, each through its ``main(argv)``
     in this process (so that the launch counts can be read around it), with
@@ -1471,7 +1524,6 @@ def check_cli(dev, kernels, smi: str):
     import contextlib
     import io
     import math
-    import pickle
     import re
 
     import numpy as np
@@ -1500,16 +1552,7 @@ def check_cli(dev, kernels, smi: str):
         log(f"[cli] {name} {' '.join(argv)}: {wall:.2f} s, launches {launches}")
         return buf.getvalue()
 
-    def read_dir(folder: Path):
-        recs = {}
-        for p in sorted(folder.rglob("body_gen_*.pkl")):
-            with open(p, "rb") as f:
-                recs[str(p.relative_to(folder))] = pickle.load(f)
-        return recs
-
-    def same_bits(a, b) -> bool:
-        return a.keys() == b.keys() and all(
-            a[n].keys() == b[n].keys() and all(np.array_equal(a[n][k], b[n][k]) for k in a[n]) for n in a)
+    read_dir, same_bits = read_pickles, same_bits_records
 
     def scores(text: str):
         return {k: float(v) for k, v in re.findall(r"(\w+)=(-?[\d.]+|nan|inf)", text)}
@@ -2459,6 +2502,244 @@ def check_snapshots(dev, model, assets, registry, kernels, slice_wall: float, sm
     return out
 
 
+EXACT_GROUPS, EXACT_REPS = 3, 1  # profile_fused's and profile_refresh_cadence's protocol, cut in depth
+EXACT_SEGMENT_REPS = 2  # profile_segments' timed calls a segment (the script's default is 5)
+EXACT_CROSS_N = 16
+EXACT_CLI_SCENES = 2  # PROX-E test scenes with N_FILES written pickles: the CLI's FittingOP fits each as one chunk
+# [soak]: bench_train_native at its defaults. Its first chunk through scan_epoch against the per-step loop: the same
+#     steps, but cuDNN's default convolution algorithms do not sum in a fixed order, so only the first step is the
+#     same step twice ([native]'s bound); the later ones part chaotically (found up to 4e-2 relative by step 32 on
+#     the card, and bf16 and f32 staging's loss at one step 5.9% apart after 192). So the comparisons
+#     that must not see that noise run with torch.backends.cudnn.deterministic, on one-epoch runs of
+#     SOAK_DET_SAMPLES: scan against per-step in equal bits, and --stage_bf16 against f32 staging within
+#     tests/test_torch_train_loop.py::test_stage_bf16_trains_close_to_f32_staging's 5%.
+SOAK_SCAN_REL_TOL = TRAIN_RESUME_REL_TOL
+SOAK_DET_SAMPLES = 32 * 32  # one chunk of 32 batches of 32
+SOAK_BF16_REL_TOL = 0.05
+
+
+def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, workdir: Path):
+    """Phase 21: the reference-exact fit tier (FitConfig.exact(): a full pass every iteration, 'high' LBS in strict
+    f32, f32 grids) at full width: profile_fused's six variants, N=16 card vs CPU, one exact call profiled,
+    profile_segments at 'fused' and 'high', profile_refresh_cadence, and cli.fitting_proxe --exact against
+    FittingOP.fitting_files. Returns its record."""
+    import argparse
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.cli import fitting_proxe
+    from psi_tpu_torch.cli.common import build_assets
+    from psi_tpu_torch.data.hdf5 import PROX_TEST_SCENES
+    from psi_tpu_torch.fit.fitting import FittingOP, make_fit_step
+    from psi_tpu_torch.gen.sample import TestOP
+    from psi_tpu_torch.scripts import profile_fused, profile_refresh_cadence, profile_segments
+    from psi_tpu_torch.scripts.profile_fit import _device_us, device_events
+    from psi_tpu_torch.utils.config import FitConfig
+
+    t_phase = time.time()
+    out = {}
+    assets_f32 = profile_fused.bench_assets(dev)
+
+    # ---- profile_fused's six variants, launches asserted
+    out["variants"] = profile_fused.run(dev, EXACT_GROUPS, EXACT_REPS, assets=(assets_f32, assets))
+    for name, r in out["variants"].items():
+        check_launches(f"[exact] {name}", r["launches"], want_launches(kernels, *r["expected_launches"]))
+        if r["out_shape"] != [N_BODIES, 72] or not r["finite"]:
+            raise AssertionError(f"[exact] {name}: fitted bodies not finite [N, 72] ({r['out_shape']})")
+    for name, want in (("exact_high", (0, 0, NUM_ITER)), ("exact_high_m20000", (0, 0, NUM_ITER)),
+                       ("exact_fused", (NUM_ITER, NUM_ITER, NUM_ITER))):
+        check_launches(f"[exact] {name}", out["variants"][name]["launches"], want_launches(kernels, *want))
+    high = out["variants"]["exact_high"]
+    log(f"[exact] exact_high mean loss iter 0 {high['loss_first']:.6f}, iter 1 {high['loss_second']:.6f} -> iter "
+        f"{NUM_ITER - 1} {high['loss_last']:.6f}")
+    # judged from the value after Adam's first update, which moves every coordinate by ~lr and raises the total
+    if not high["loss_last"] < high["loss_second"]:
+        raise AssertionError(f"[exact] exact_high's mean loss did not fall after the first update: {high}")
+
+    # ---- FitConfig.exact() at N=16: card against CPU, beside the fit's own sensitivity on the card
+    cfg = FitConfig.exact(num_iter=NUM_ITER)
+    cpu = torch.device("cpu")
+    t0 = time.time()
+    assets_cpu = profile_fused.bench_assets(cpu)
+    x16, cam16 = x72_pre[:EXACT_CROSS_N], cam_ext[:EXACT_CROSS_N]
+    sidx16 = torch.zeros(EXACT_CROSS_N, dtype=torch.int64, device=dev)
+    runs = {}
+    for name, d, a, scale in (("cpu", cpu, assets_cpu, 1.0), ("cuda", dev, assets_f32, 1.0),
+                              ("cuda+", dev, assets_f32, 1.0 + CROSS_PERTURB),
+                              ("cuda-", dev, assets_f32, 1.0 - CROSS_PERTURB)):
+        x, _, h = make_fit_step(a, cfg, want_metrics=False)((x16 * scale).to(d), cam16.to(d), sidx16.to(d))
+        runs[name] = (x.cpu(), h.cpu())
+    del assets_cpu
+
+    def drift(a: str, b: str):
+        dd = (runs[a][0] - runs[b][0]).abs()
+        return dd.max().item(), dd.mean().item()
+
+    card = drift("cuda", "cpu")
+    own = tuple(max(p, q) for p, q in zip(drift("cuda+", "cuda"), drift("cuda-", "cuda")))
+    tol_max, tol_mean = CROSS_SENS_FACTOR * own[0], CROSS_SENS_FACTOR * own[1]
+    l0_cpu, l0_cuda = runs["cpu"][1][0], runs["cuda"][1][0]
+    l0_rel = ((l0_cpu - l0_cuda).abs() / l0_cpu.abs().clamp(min=1e-6)).max().item()
+    l0_mean_rel = abs(l0_cpu.mean().item() - l0_cuda.mean().item()) / abs(l0_cpu.mean().item())
+    out["cross"] = {"l0_rel": l0_rel, "l0_mean_rel": l0_mean_rel, "card_max": card[0], "card_mean": card[1],
+                    "own_max": own[0], "own_mean": own[1], "s": time.time() - t0}
+    log(f"[exact] N={EXACT_CROSS_N} FitConfig.exact() CPU vs card in {out['cross']['s']:.1f} s: iter-0 loss rel diff "
+        f"{l0_rel:.3e} per body, {l0_mean_rel:.3e} of the mean (tol {CROSS_LOSS0_REL_TOL}); fitted x72 drift "
+        f"card-vs-CPU max {card[0]:.3e} mean {card[1]:.3e}; card-vs-card with inputs x(1+-{CROSS_PERTURB}) max "
+        f"{own[0]:.3e} mean {own[1]:.3e}; tol max {tol_max:.3e} mean {tol_mean:.3e}")
+    if not l0_rel <= CROSS_LOSS0_REL_TOL:
+        raise AssertionError(f"[exact] iteration-0 losses differ card vs CPU: {l0_rel} (TF32 left on?)")
+    if not (card[0] <= tol_max and card[1] <= tol_mean):
+        raise AssertionError("[exact] CPU and card fits drift apart beyond the fit's own sensitivity")
+
+    # ---- one exact_high call under torch.profiler
+    xs, cam_b, sidx_b = profile_fused.fit_inputs(np.random.default_rng(SEED + 95), N_BODIES, 1, dev)
+    fit = make_fit_step(assets_f32, cfg, want_metrics=False)
+    fit(xs[0], cam_b, sidx_b)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fit(xs[0], cam_b, sidx_b)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    if not busy_ms > 0:
+        raise AssertionError("[exact] the profile shows no device time")
+    out["profile"] = {"busy_ms": busy_ms, "busy_share": busy_ms / 1e3 / high["median_s"],
+                      "device_launches": sum(e.count for e in events),
+                      "top": [{"name": e.key[:100], "ms": _device_us(e) / 1e3, "launches": e.count}
+                              for e in sorted(events, key=_device_us, reverse=True)[:10]]}
+    log(f"[exact] one exact_high call profiled: device busy {busy_ms:.2f} ms "
+        f"({100 * out['profile']['busy_share']:.1f}% of the median wall {high['median_s']:.4f} s), "
+        f"{out['profile']['device_launches']} device launches")
+    for t in out["profile"]["top"]:
+        log(f"[exact]   top: {t['ms']:.3f} ms, {t['launches']} launches: {t['name']}")
+
+    # ---- profile_segments at 'fused' and 'high', profile_refresh_cadence
+    out["segments"] = {}
+    for tier in ("fused", "high"):
+        out["segments"][tier] = profile_segments.run(dev, tier, assets=assets, reps=EXACT_SEGMENT_REPS)
+        for name, r in out["segments"][tier].items():
+            fresh_nn, _, _ = profile_segments.SEGMENTS[name]
+            k12 = NUM_ITER if tier == "fused" else 0
+            check_launches(f"[exact] segment {name} at {tier}", r["launches"],
+                           want_launches(kernels, k12, k12, NUM_ITER if fresh_nn else 0))
+    out["cadence"] = profile_refresh_cadence.run(dev, EXACT_GROUPS, EXACT_REPS, assets=assets)
+    for name, want in (("refresh10", (20, 20, 6)), ("refresh15", (20, 20, 6)), ("refresh20", (20, 20, 5))):
+        check_launches(f"[exact] {name}", out["cadence"][name]["launches"], want_launches(kernels, *want))
+
+    # ---- cli.fitting_proxe --exact on written files, against FittingOP.fitting_files with the CLI's configuration
+    gen, fit_dir, direct = workdir / "gen", workdir / "fit", workdir / "direct"
+    snapshot = {k: batch[k] for k in ("xs", "cam_int", "max_d")}
+    snapshot["cam_ext"] = cam_ext[:1].cpu().numpy()
+    op = TestOP(model, n_samples=N_FILES, seed=SEED + 90)
+    scenes = PROX_TEST_SCENES[:EXACT_CLI_SCENES]
+    for scene in scenes:
+        op.test(snapshot, str(gen), scene)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, cli_launches, cli_s, _ = counted(kernels, lambda: fitting_proxe.main(
+            [str(gen), str(fit_dir), "--synthetic", "--exact"]))
+    args = argparse.Namespace(synthetic=True, proxe_path=None, device=None)
+    assets_cli, registry = build_assets(args, sdf_dtype=None, device=dev)
+    cli_cfg = FitConfig(init_lr_h=0.1, num_iter=NUM_ITER, contact_denom_offset=0.01, weight_loss_rec=1.0,
+                        weight_loss_vposer=0.01, weight_contact=0.1, weight_collision=0.5, refresh_every=1,
+                        lbs_precision="high", prune_scene_points=PRUNE)
+
+    def fit_directly():
+        for si, scene in enumerate(scenes):
+            FittingOP(assets_cli, cli_cfg, scene_idx=si % registry.num_scenes).fitting_files(
+                str(gen / scene), str(direct / scene))
+
+    _, direct_launches, direct_s, _ = counted(kernels, fit_directly)
+    fitted = read_pickles(fit_dir)
+    equal = same_bits_records(fitted, read_pickles(direct))
+    want = want_launches(kernels, 0, 0, len(scenes) * (NUM_ITER + 1))
+    finite = all(np.isfinite(v).all() for r in fitted.values() for v in r.values())
+    banner = buf.getvalue().strip().splitlines()
+    out["cli_fitting_proxe_exact"] = {"launches": cli_launches, "wall_s": cli_s, "direct_launches": direct_launches,
+                                      "direct_s": direct_s, "files": len(fitted), "equal_bits": equal}
+    log(f"[exact] cli.fitting_proxe --exact on {len(scenes)} scenes x {N_FILES} written files: {cli_s:.2f} s, "
+        f"launches {cli_launches} (want {want}); FittingOP.fitting_files with the CLI's exact configuration "
+        f"{direct_s:.2f} s, launches {direct_launches}; {len(fitted)} fitted pickles, equal in bits: {equal}; "
+        f"{banner[0]}")
+    check_launches("[exact] cli.fitting_proxe --exact", cli_launches, want)
+    check_launches("[exact] FittingOP.fitting_files, exact", direct_launches, want)
+    if not (len(fitted) == len(scenes) * N_FILES and equal and finite and "EXACT" in banner[0]):
+        raise AssertionError(f"[exact] cli.fitting_proxe --exact: {len(fitted)} files, equal bits {equal}, "
+                             f"finite {finite}, banner {banner[0]!r}")
+    out["phase_s"] = time.time() - t_phase
+    log(f"[exact] the phase {out['phase_s']:.2f} s; on {smi}")
+    return out
+
+
+def check_soak(dev, kernels, smi: str, workdir: Path):
+    """Phase 22: scripts.bench_train_native at its defaults (6144 packed samples, a warm-up epoch, 3 timed epochs of
+    scan-epoch TrainOP s1 at TrainConfig's width, batch 32, chunk 32), then one-epoch runs of SOAK_DET_SAMPLES at f32
+    and at --stage_bf16 staging with deterministic cuDNN. Returns its record."""
+    import torch
+
+    from psi_tpu_torch.scripts import bench_train_native
+
+    t_phase = time.time()
+    rec, rows = bench_train_native.soak(workdir / "f32", dev)
+    shutil.rmtree(workdir / "f32", ignore_errors=True)  # the 808-MB pack
+    per_epoch = rec["samples"] // rec["batch_size"]
+    steps = rec["epochs"] * per_epoch
+    log(f"[soak] bench_train_native: {rec['steps']} steps in {rec['wall_s']:.2f} s -> {rec['steps_per_sec']:.2f} "
+        f"steps/s, {rec['samples_per_sec']:.1f} samples/s; loader {rec['loader_wall_s']:.3f} s in "
+        f"{rec['loader_calls']} calls (occupancy {rec['loader_occupancy']:.4f}); warm-up epoch "
+        f"{rec['warmup_epoch_s']:.2f} s; pack {rec['pack_mb']:.1f} MB in {rec['pack_s']:.2f} s; launches "
+        f"{rec['launches']} (warm-up {rec['warmup_launches']}); peak device memory {rec['peak_gb']:.4f} GB; loss "
+        f"{rec['loss_first']:.6f} -> {rec['loss_after_first_update']:.6f} (after the first update) -> "
+        f"{rec['loss_last']:.6f}; the first chunk through the per-step loop: max abs diff "
+        f"{rec['scan_vs_step_max_abs_diff']:.3e}, rel {rec['scan_vs_step_max_rel_diff']:.3e}, equal in bits: "
+        f"{rec['scan_vs_step_equal']}; on {smi}")
+    if not (rec["steps"] == steps == rec["logged_steps"] == len(rows) == rec["loader_calls"]):
+        raise AssertionError(f"[soak] {rec['logged_steps']} steps logged, {rec['loader_calls']} loader calls, "
+                             f"want {steps}")
+    check_launches("[soak] the timed epochs", rec["launches"], want_launches(kernels, 0, 0, steps))
+    check_launches("[soak] the warm-up epoch", rec["warmup_launches"], want_launches(kernels, 0, 0, per_epoch))
+    if not rec["metrics_finite"]:
+        raise AssertionError("[soak] a logged metric is not finite")
+    if not rec["loss_after_first_update"] > rec["loss_last"]:
+        raise AssertionError(f"[soak] the loss did not fall after Adam's first update: {rec['loss_after_first_update']}"
+                             f" -> {rec['loss_last']}")
+    if not (rec["scan_vs_step_steps"] == rec["chunk"] and rec["scan_vs_step_rel_by_step"][0] <= SOAK_SCAN_REL_TOL):
+        raise AssertionError(f"[soak] the first step differs from the per-step loop's: {rec['scan_vs_step_rel_by_step']}")
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        det, det_rows = bench_train_native.soak(workdir / "det", dev, samples=SOAK_DET_SAMPLES, epochs=1)
+        bf16, bf16_rows = bench_train_native.soak(workdir / "bf16", dev, samples=SOAK_DET_SAMPLES, epochs=1,
+                                                  stage_bf16=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        shutil.rmtree(workdir / "det", ignore_errors=True)
+        shutil.rmtree(workdir / "bf16", ignore_errors=True)
+    rel = abs(bf16["loss_last"] - det["loss_last"]) / abs(det["loss_last"])
+    log(f"[soak] the first chunk against the per-step loop, relative by step: "
+        f"{', '.join(f'{v:.1e}' for v in rec['scan_vs_step_rel_by_step'])}; with cudnn.deterministic, "
+        f"{det['steps']} steps: max rel {det['scan_vs_step_max_rel_diff']:.3e}, equal in bits: "
+        f"{det['scan_vs_step_equal']}; --stage_bf16 there: loss at the end of the epoch {bf16['loss_last']:.6f} vs f32 "
+        f"staging {det['loss_last']:.6f} (rel {rel:.3e}, tol {SOAK_BF16_REL_TOL}), {bf16['steps_per_sec']:.2f} "
+        f"steps/s, occupancy {bf16['loader_occupancy']:.4f}")
+    if not det["scan_vs_step_equal"]:
+        raise AssertionError("[soak] with deterministic cuDNN the chunked epoch differs from the per-step loop")
+    if not (bf16["metrics_finite"] and len(bf16_rows) == len(det_rows) and bf16["loss_last"] != det["loss_last"]
+            and rel <= SOAK_BF16_REL_TOL):
+        raise AssertionError("[soak] bf16 staging does not train close to f32 staging")
+    for r in (det, bf16):
+        check_launches("[soak] a one-epoch run", r["launches"], want_launches(kernels, 0, 0, r["steps"]))
+    out = {"f32": rec, "bf16": bf16, "bf16_rel_loss": rel, "deterministic_cudnn": det, "phase_s": time.time() - t_phase}
+    log(f"[soak] the phase {out['phase_s']:.2f} s; on {smi}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2474,7 +2755,7 @@ def main() -> None:
 
 
 def smoke(dev) -> None:
-    """Phases 1-20 on card ``dev``; raises on the first failure."""
+    """Phases 1-22 on card ``dev``; raises on the first failure."""
     import torch
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator, make_synthetic_assets
@@ -2686,6 +2967,20 @@ def smoke(dev) -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # ---- 21. the reference-exact fit tier at full width; the fit's profiling scripts; cli.fitting_proxe --exact
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_exact_"))
+    try:
+        exact = check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- 22. the native loader in front of scan-epoch training at full width (scripts.bench_train_native)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_soak_"))
+    try:
+        soak = check_soak(dev, kernels, smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     # ---- the record: each kernel with the launch count of its path's run
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
@@ -2708,7 +3003,11 @@ def smoke(dev) -> None:
             **{f"dist_gloo_rank{r}_{c}": p["launches"][c][k.name] for r, p in enumerate(dist_rec["gloo_two_ranks"]["ranks"])
                for c in ("genfit", "engine", "train")}, vposer_phase=vposer["launches"][k.name],
             snapshots_generate_fit=snaps["generate_fit"]["launches"][k.name],
-            demo=snaps["scripts"]["demo"]["launches"][k.name])
+            demo=snaps["scripts"]["demo"]["launches"][k.name],
+            **{v: exact["variants"][v]["launches"][k.name] for v in ("exact_high", "exact_high_m20000", "exact_fused")},
+            **{v: exact["cadence"][v]["launches"][k.name] for v in ("refresh15", "refresh20")},
+            cli_fitting_proxe_exact=exact["cli_fitting_proxe_exact"]["launches"][k.name],
+            soak_train_s1=soak["f32"]["launches"][k.name])
     rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"],
                                        cli_train_s1=cli["launches"]["train_s1"][NN_ARGMIN.name],
                                        native_train_s1=native["k3_launches"])
@@ -2720,7 +3019,8 @@ def smoke(dev) -> None:
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,
                     "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve, "cli": cli,
-                    "native": native, "dist": dist_rec, "vposer": vposer, "snapshots": snaps}))
+                    "native": native, "dist": dist_rec, "vposer": vposer, "snapshots": snaps, "exact": exact,
+                    "soak": soak}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

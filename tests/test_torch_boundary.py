@@ -50,7 +50,9 @@ def test_scripts_and_eval_load_without_jax():
         "import psi_tpu_torch.scripts.profile_gather, psi_tpu_torch.scripts.profile_sdf\n"
         "import psi_tpu_torch.scripts.profile_fit, psi_tpu_torch.scripts.tune_skin_fwd\n"
         "import psi_tpu_torch.scripts.tune_gather_probes, psi_tpu_torch.scripts.tune_chamfer_nn\n"
-        "import psi_tpu_torch.scripts.profile_train\n"
+        "import psi_tpu_torch.scripts.profile_train, psi_tpu_torch.scripts.profile_fused\n"
+        "import psi_tpu_torch.scripts.profile_segments, psi_tpu_torch.scripts.profile_refresh_cadence\n"
+        "import psi_tpu_torch.scripts.bench_train_native\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'psi_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -61,7 +63,8 @@ def test_scripts_and_eval_load_without_jax():
 
 @pytest.mark.parametrize("script", ["profile_vmem_gather", "profile_gather", "profile_sdf", "profile_fit",
                                     "tune_skin_fwd", "tune_gather_probes", "tune_chamfer_nn", "profile_train",
-                                    "soak_serve", "bench_serve_gen", "vposer_scale_run"])
+                                    "soak_serve", "bench_serve_gen", "vposer_scale_run", "profile_fused",
+                                    "profile_segments", "profile_refresh_cadence", "bench_train_native"])
 def test_profiling_entry_points_fail_without_a_card(script):
     """A measurement never falls back to the CPU."""
     r = _run(["-m", f"psi_tpu_torch.scripts.{script}"], ROOT)
