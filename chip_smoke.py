@@ -13,7 +13,8 @@ verts), with random weights made from a seed. Phases, one line each:
   2. build    nvcc builds csrc/*.cu into build/kernels (seconds printed);
               ptxas' registers and spills, and from cuobjdump the count of
               tensor-core (HMMA) instructions in each of K1's and K2's
-              kernels (none may have 0) and of fused multiply-adds (FFMA) in
+              kernels and in each of the six instances of K4/K5's product
+              kernel (none may have 0) and of fused multiply-adds (FFMA) in
               K3's (must be 0: its bits rest on no contraction)
   3. K1       fused skinning forward vs its plain twin, two runs
               bit-equal; the time of each of its two launches beside the
@@ -26,7 +27,16 @@ verts), with random weights made from a seed. Phases, one line each:
               equal; beside the bound, the issue floor of the exact formula.
               Then K1, K2 and K3 vs their twins at the other body counts of
               phases 13-14 (128, 64, 4 and 1), full width, untimed
-  6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6,
+ 5b. K4/K5    the 'high' LBS tier's split-bf16 products on phase 6's sampled
+              bodies: the pose correctives [B, 486] @ posedirs [486, 31425]
+              at B=256 and 32 and the blend w [10475, 55] . A12 [B, 55, 12]
+              at B=256 and 1, K4 against its twin (float64 sums, within 2e-6
+              of max |twin|) and K5, the gradient of the operand that varies
+              per body, against its twin (<= 1% of elements differ, each by
+              at most one bf16 ulp of the largest); two runs equal in bits;
+              device time, each of K5's two launches, the bound, the twin
+              and the strict-f32 torch call the path ran before
+  6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6 (K4/K5 0),
               finite bodies, mean loss falling, peak device memory; then
               bodies/s
   7. cross    the same slice at N=16 on the CPU (twins) and on the card
@@ -44,7 +54,8 @@ and then the probe path, the SDF variants and the eval scorers:
   9. sdf      profile_sdf's five SDF lookup variants, one timed rep each
  10. eval     the fitted N=256 population of phase 6 scored on the card
               and on the CPU (collision_contact_scores, diversity_metrics
-              k=20): the scores agree within stated bounds
+              k=20): the scores agree within stated bounds; the card's
+              scorer launches K4 twice (one 'high' decode, no gradient)
 
 and then the training path and the Stage-2 sampler:
 
@@ -57,7 +68,8 @@ and then the training path and the Stage-2 sampler:
               0.75 * 9, so f_scene = 1 and fca = 1). Raises unless every
               metric of every step is finite, contact is nonzero in every
               step and collision in at least one, K3 was launched exactly
-              once per step at M = 20000, BatchNorm's running statistics
+              once per step at M = 20000 and K4/K5 twice each a step (the
+              'high' decode and its gradient), BatchNorm's running statistics
               moved, a run resumed from the checkpoint written after step 3
               repeats step 4's metrics, and on one batch repeated for 10
               steps the loss falls from its value after Adam's first update
@@ -165,8 +177,10 @@ and then the training path and the Stage-2 sampler:
               grid; one rasterize_mesh of the body at 256^2 timed, its depth
               and labels equal to the CPU's in >= 99.5% of pixels and within
               1 mm where both hit; BodyModelWithPoser.randomize_pose and
-              untangle_interpenetrations() lowering the proxy penalty; K1/K2/K3
-              launched 0/0/0 in the phase; the phase's seconds.
+              untangle_interpenetrations() (psi_tpu's L-BFGS) lowering the
+              proxy penalty; K1/K2/K3 launched 0/0/0 in the phase; K4/K5
+              4/2 a training step, 4/0 an evaluation batch, 2/2 an untangle
+              evaluation; the phase's seconds.
 
  and then the data production in front of the main path and the last
  entry points:
@@ -201,12 +215,13 @@ and then the training path and the Stage-2 sampler:
 and then the paths that had not run on the card before:
 
  21. exact    the reference-exact fit tier (FitConfig.exact(): a full pass
-              every iteration, 'high' LBS in strict f32, f32 grids) at
+              every iteration, 'high' LBS (split-bf16: K4/K5), f32 grids) at
               full width: scripts.profile_fused's six variants at
               --groups 3 --reps 1 (refresh10 fast/fused on bf16 grids,
               exact high/fast/fused, exact high unpruned: K3 at M=20000),
-              each with its launch counts asserted (0/0/6, 20/20/6, 0/0/20,
-              0/0/20, 20/20/20, 0/0/20), finite [256, 72] bodies, the
+              each with its launch counts asserted (K1-K5 0/0/6/0/0,
+              20/20/6/0/0, 0/0/20/40/40, 0/0/20/0/0, 20/20/20/0/0,
+              0/0/20/40/40), finite [256, 72] bodies, the
               exact_high mean loss falling after Adam's first update; N=16
               FitConfig.exact() card vs CPU (iteration-0 losses within 1e-4,
               which TF32 would break; the fitted x72 within 2x the fit's own
@@ -217,7 +232,7 @@ and then the paths that had not run on the card before:
               asserted); profile_refresh_cadence at --groups 3 --reps 1
               (20/20/6, 20/20/6, 20/20/5); cli.fitting_proxe --exact on 300
               written pickles in each of two scenes (one chunk a scene:
-              0/0/42), its files equal in bits to FittingOP.fitting_files
+              0/0/42/84/80), its files equal in bits to FittingOP.fitting_files
               with the CLI's exact configuration
  22. soak     scripts.bench_train_native at its defaults: 6144 synthetic
               samples packed for the native loader (807.7 MB), one warm-up
@@ -280,6 +295,16 @@ K2_REL_TOL = 1e-3
 # K3: both sides evaluate the same f32 (dx^2 + dy^2) + dz^2; distances
 #     agree to f32 rounding and indices differ only between equal distances.
 K3_REL_TOL = 1e-5
+# K4: the same exact bf16 x bf16 products as its twin, which sums them in
+#     float64 and rounds once; the kernel sums 16 at a time on the tensor
+#     cores (truncating) and the steps in f32: of max |twin|.
+K4_REL_TOL = 2e-6
+# K5: the twin's cotangent blocks are f32 sums (cuBLAS on the card) in another
+#     order than the kernel's, so a block rounds to the neighbouring bf16 on a
+#     few elements; such an element moves by at most one bf16 ulp of the
+#     operand's largest gradient.
+K5_DIFFER_SHARE = 0.01
+K5_ULP_REL = 2.0**-7
 # cross-device slice, iteration 0: the same bodies through the same math,
 #     sums in another order (the CPU parity test's bound)
 CROSS_LOSS0_REL_TOL = 1e-4
@@ -451,6 +476,7 @@ SKIN_KERNELS = ("skin_pack_kernel", K1_MMA_KERNEL) + K2_MMA_KERNELS + ("reduce_t
 
 
 K3_KERNEL = "nn_argmin_kernel"
+SPLIT_KERNEL = "split_mm_kernel"  # K4 and K5's product kernel, in each of its tile and mode instances
 
 
 def sass_counts(lib_path, opcodes=("HMMA", "FFMA")):
@@ -500,6 +526,112 @@ def check_skinning_sass(counts: dict):
     if not all(found[name] > 0 for name in (K1_MMA_KERNEL,) + K2_MMA_KERNELS):
         raise AssertionError(f"a K1 or K2 product kernel runs no tensor-core instruction: {found}")
     return found
+
+
+def check_split_sass(counts: dict) -> dict:
+    """Phase 2's tensor-core check for K4 and K5: every instance of their
+    product kernel (two tiles x forward and two gradient modes) holds HMMA."""
+    found = {fn: n for fn, n in counts.items() if SPLIT_KERNEL in fn}
+    log(f"[build]   {SPLIT_KERNEL}: {len(found)} instances, HMMA instructions {sorted(found.values())}")
+    if len(found) != 6 or not all(found.values()):
+        raise AssertionError(f"K4/K5's product kernel: {len(found)} instances, HMMA {found}")
+    return found
+
+
+def split_bounds(B: int, P: int, V3: int, V: int, J: int) -> dict:
+    """The bounds of K4 and K5 at the path's two products: the pose correctives
+    pf [B, P] @ posedirs [P, V3] and the blend w [V, J] . A12 [B, J, 12]. Each
+    reads its f32 operands once and writes its f32 output once. K4 does three
+    bf16 products of the operands' halves; K5 six (three parts of the f32
+    cotangent, each with both halves of the other operand)."""
+    mm = 2 * B * P * V3
+    blend = 2 * V * J * B * 12
+    return {"k4_correctives": bound(4 * (B * P + P * V3 + B * V3), bf16=3 * mm),
+            "k4_blend": bound(4 * (V * J + B * J * 12 + B * V * 12), bf16=3 * blend),
+            "k5_correctives": bound(4 * (B * V3 + P * V3 + B * P), bf16=6 * mm),
+            "k5_blend": bound(4 * (V * J + B * V * 12 + B * J * 12), bf16=6 * blend)}
+
+
+def check_split(assets, cb, A12, build_log: str) -> dict:
+    """Phase 5b: K4 and K5 against their twins at the 'high' tier's shapes on
+    real bodies (phase 6's sampled population): the pose correctives at B =
+    256 and 32, the blend at B = 256 and 1, each cotangent seeded. Two runs
+    equal in bits; the times of the kernel, its twin, and the strict-f32
+    torch call that the path ran before the split, beside the bound."""
+    import torch
+
+    from psi_tpu_torch.ops import _cuda
+    from psi_tpu_torch.ops import precision as tp
+    from psi_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
+
+    smplx = assets.smplx
+    P = smplx.posedirs.shape[0]
+
+    def blend(w, a):
+        return torch.einsum("vj,bjz->bvz", w, a)
+
+    # name -> (a, b, its Gemm's maker, the contraction, its split axes, the operand whose gradient K5 serves)
+    cases = {f"correctives_b{n}": (cb[:n, -P:].contiguous(), smplx.posedirs, tp.matmul_gemm, torch.matmul, (1, 0),
+                                   0) for n in (N_BODIES, 32)}
+    cases.update({f"blend_b{n}": (smplx.lbs_weights, A12[:n].contiguous(), tp.blend_gemm, blend, (1, 1), 1)
+                  for n in (N_BODIES, 1)})
+    gen = torch.Generator(device=cb.device).manual_seed(SEED + 5)
+    out = {}
+    for name, (a, b, gemm, fn, axes, which) in cases.items():
+        gm = gemm(a, b)
+        y1, y2 = tp.split_mm(gm), tp.split_mm(gm)
+        ref = tp.split_product_reference(a, b, fn)
+        g = torch.randn(gm.out_shape, generator=gen, device=cb.device)
+        sub = tp.grad_gemms(gm, g, (tuple(a.shape), tuple(b.shape)))[which]
+        cot_is_a = which == 0
+        g1, g2 = tp.split_mm_grad(sub, cot_is_a), tp.split_mm_grad(sub, cot_is_a)
+        need = (which == 0, which == 1)
+        gref = tp.split_product_grad_reference(a, b, g, fn, need)[which]
+        torch.cuda.synchronize()
+        fwd_max_abs, grad_max_abs = (y1 - ref).abs().max().item(), (g1 - gref).abs().max().item()
+        fwd_rel, grad_rel = fwd_max_abs / ref.abs().max().item(), grad_max_abs / gref.abs().max().item()
+        # the same widened products summed in f32 by the torch call (cuBLAS), for scale
+        f32_sum = fn(tp.split3(a, axes[0]).float(), tp.split3_rhs(b, axes[1]).float())
+        f32_sum_rel = ((f32_sum - ref).abs().max() / ref.abs().max()).item()
+        differ = (g1 != gref).double().mean().item()
+        equal = torch.equal(y1, y2) and torch.equal(g1, g2)
+        args, _, _keep = tp.grad_operands(sub, cot_is_a)
+        B = a.shape[0] if which == 0 else b.shape[0]
+        bnd = split_bounds(B, P, smplx.posedirs.shape[1], smplx.num_verts, smplx.num_joints)
+        kind = "correctives" if which == 0 else "blend"
+        r = {"B": B, "fwd_rel": fwd_rel, "fwd_max_abs": fwd_max_abs, "f32_sum_rel": f32_sum_rel,
+             "grad_differ_share": differ, "grad_rel": grad_rel, "grad_max_abs": grad_max_abs, "equal_bits": equal,
+             "k4": {"ms": cuda_ms(lambda: tp.split_mm(gm)), "device_ms": cuda_device_ms(lambda: tp.split_mm(gm)),
+                    "plain_ms": cuda_ms(lambda: tp.split_product_reference(a, b, fn)),
+                    "library_ms": cuda_ms(lambda: fn(a, b)),
+                    "library_device_ms": cuda_device_ms(lambda: fn(a, b)), **bnd[f"k4_{kind}"]},
+             "k5": {"ms": cuda_ms(lambda: tp.split_mm_grad(sub, cot_is_a)),
+                    "device_ms": cuda_device_ms(lambda: tp.split_mm_grad(sub, cot_is_a)),
+                    "plain_ms": cuda_ms(lambda: tp.split_product_grad_reference(a, b, g, fn, need)),
+                    "stage_ms": stage_ms("psi_split_mm_grad", args, tp.BWD_STAGES, tp.BWD_ALL, _cuda.stream_of(g)),
+                    **bnd[f"k5_{kind}"]}}
+        # the strict-f32 torch call of the gradient the path ran before: g @ posedirs^T, or the blend's transpose
+        r["k5"]["library_ms"] = cuda_ms(
+            (lambda: g @ b.T) if which == 0 else (lambda: torch.einsum("vj,bvz->bjz", a, g)))
+        r["k5"]["library_device_ms"] = cuda_device_ms(
+            (lambda: g @ b.T) if which == 0 else (lambda: torch.einsum("vj,bvz->bjz", a, g)))
+        out[name] = r
+        k4, k5 = r["k4"], r["k5"]
+        log(f"[K4/K5] {name}: forward max |K4 - twin| / max |twin| {fwd_rel:.3e} (tol {K4_REL_TOL}; the same "
+            f"products summed in f32 by torch: {f32_sum_rel:.3e}); "
+            f"K5's gradient differs from the twin's on {100 * differ:.4f}% of elements (tol {100 * K5_DIFFER_SHARE}%), "
+            f"by at most {grad_rel:.3e} of its largest (tol {K5_ULP_REL:.3e}); two runs equal in bits: {equal}")
+        log(f"[K4/K5]   K4 {k4['device_ms']:.4f} ms on the device ({k4['ms']:.4f} a call; bound {k4['bound_ms']:.4f} "
+            f"ms, {k4['bound_by']}: {k4['device_ms'] / k4['bound_ms']:.1f}x), twin {k4['plain_ms']:.4f} ms, strict-f32 "
+            f"torch {k4['library_device_ms']:.4f} ms on the device; K5 {k5['device_ms']:.4f} ms ("
+            + ", ".join(f"{n} {v:.4f}" for n, v in k5["stage_ms"].items())
+            + f"; bound {k5['bound_ms']:.4f} ms, {k5['bound_by']}: {k5['device_ms'] / k5['bound_ms']:.1f}x), twin "
+            f"{k5['plain_ms']:.4f} ms, strict-f32 torch {k5['library_device_ms']:.4f} ms")
+        if not (fwd_rel <= K4_REL_TOL and differ <= K5_DIFFER_SHARE and grad_rel <= K5_ULP_REL and equal):
+            raise AssertionError(f"[K4/K5] {name}: K4 or K5 disagrees with its twin or is not deterministic: {r}")
+    log("[K4/K5] ptxas: " + "; ".join(ptxas_usage(build_log, f"{SPLIT_KERNEL}ILi{bn}ELi{wn}ELi{mode}E")
+                                      for bn, wn in ((64, 2), (16, 1)) for mode in (0, 1, 2)))
+    return out
 
 
 def check_k2(cb, A12, cam12, bundle, k2_bound: dict):
@@ -659,12 +791,16 @@ def check_eval(assets, assets_cpu, x72, cam_ext, scene_idx):
     import torch
 
     from psi_tpu_torch.eval import collision_contact_scores, diversity_metrics
+    from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
 
     t0 = time.time()
-    nc, ct = collision_contact_scores(assets, x72, cam_ext, scene_idx)
+    (nc, ct), split_launches, _, _ = counted((SPLIT_FWD, SPLIT_BWD),
+                                             lambda: collision_contact_scores(assets, x72, cam_ext, scene_idx))
     ent, md = diversity_metrics(x72, k=20)
     torch.cuda.synchronize()
     card_s = time.time() - t0
+    # one 'high' decode of the population, no gradient: K4 for the correctives and the blend
+    check_launches("[eval] the collision scorer", split_launches, {SPLIT_FWD.name: 2, SPLIT_BWD.name: 0})
     nc_c, ct_c = collision_contact_scores(assets_cpu, x72.cpu(), cam_ext.cpu(), scene_idx.cpu())
     ent_c, md_c = diversity_metrics(x72.cpu(), k=20)
     log(f"[eval] N={x72.shape[0]} on the card in {card_s:.2f} s: non-collision {nc:.6f} (CPU {nc_c:.6f}, "
@@ -676,7 +812,7 @@ def check_eval(assets, assets_cpu, x72, cam_ext, scene_idx):
     if not (abs(nc - nc_c) <= EVAL_NONCOLLISION_TOL and abs(ct - ct_c) <= EVAL_CONTACT_TOL
             and abs(ent - ent_c) <= EVAL_ENTROPY_TOL):
         raise AssertionError("card and CPU eval scores disagree")
-    return {"non_collision": nc, "contact": ct, "entropy": ent, "mean_dist": md,
+    return {"non_collision": nc, "contact": ct, "entropy": ent, "mean_dist": md, "split_launches": split_launches,
             "cpu": {"non_collision": nc_c, "contact": ct_c, "entropy": ent_c, "mean_dist": md_c}}
 
 
@@ -725,6 +861,7 @@ def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Pat
 
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator
     from psi_tpu_torch.ops.chamfer import NN_ARGMIN
+    from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
     from psi_tpu_torch.train.loop import TrainOP, _stage_chunk, init_state, make_train_step
     from psi_tpu_torch.utils.config import LossConfig, TrainConfig
 
@@ -759,11 +896,13 @@ def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Pat
 
     op.epoch_fn = timed
     torch.cuda.synchronize()
-    NN_ARGMIN.launches = 0
+    for k in (NN_ARGMIN, SPLIT_FWD, SPLIT_BWD):
+        k.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     last = op.train(batches(half))
     torch.cuda.synchronize()
     k3_launches = NN_ARGMIN.launches
+    split_launches = {k.name: k.launches for k in (SPLIT_FWD, SPLIT_BWD)}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     rows = read_metrics(run_dir)
     names = {"loss", "rec_t", "rec_p", "vposer", "contact", "collision", "kl"} | (
@@ -779,13 +918,17 @@ def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Pat
         raise AssertionError(f"{tag} a gated term is zero: {rows}")
     if k3_launches != TRAIN_STEPS:
         raise AssertionError(f"{tag} K3 launched {k3_launches} times in {TRAIN_STEPS} steps")
+    # a step decodes its bodies once at 'high': K4 for the correctives and the blend, K5 for their gradients
+    check_launches(f"{tag} K4/K5 in {TRAIN_STEPS} steps", split_launches,
+                   {SPLIT_FWD.name: 2 * TRAIN_STEPS, SPLIT_BWD.name: 2 * TRAIN_STEPS})
     moved = [k for k, v in op.model.state_dict().items() if k in stats0 and not torch.equal(v, stats0[k])]
     if len(moved) != len(stats0):
         raise AssertionError(f"{tag} {len(stats0) - len(moved)} running statistics did not move")
     median_ms = statistics.median(step_ms[1:])
     log(f"{tag} TrainOP on the card, batch {cfg.batch_size}, gates open (epochs 8 and 9 of 9): {TRAIN_STEPS} steps, every "
         f"metric finite; loss {rows[0]['loss']:.6f} -> {rows[-1]['loss']:.6f}; contact > 0 in all, collision > 0 in "
-        f"{n_collision}; K3 launches {k3_launches} at M={M} (one per step); {len(moved)} running statistics moved; "
+        f"{n_collision}; K3 launches {k3_launches} at M={M} (one per step), K4/K5 {split_launches}; {len(moved)} "
+        f"running statistics moved; "
         f"first step {step_ms[0]:.1f} ms, then {', '.join(f'{t:.2f}' for t in step_ms[1:])} ms: median "
         f"{median_ms:.3f} ms a step ({1e3 / median_ms:.2f} steps/s); peak device memory {peak_gb:.4f} GB; on {smi}")
 
@@ -862,6 +1005,7 @@ def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Pat
         raise AssertionError(f"{tag} card and CPU disagree: metrics {metric_rel}, gradients median {grad_median}, "
                              f"largest {grad_rel[worst]} at {worst}")
     return {"step_ms": step_ms, "median_step_ms": median_ms, "peak_gb": peak_gb, "k3_launches": k3_launches,
+            "split_launches": split_launches,
             "steps": TRAIN_STEPS, "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
             "collision_steps": n_collision, "resume_rel": resume_rel, "resume_later_rel": later_rel,
             "repeat_losses": losses, "cross_metric_rel": metric_rel, "cross_grad_rel": grad_rel[worst],
@@ -926,8 +1070,9 @@ def counted(kernels, fn):
     return out, {k.name: k.launches for k in kernels}, wall, torch.cuda.max_memory_allocated() / 1e9
 
 
-def want_launches(kernels, k1: int, k2: int, k3: int) -> dict:
-    return dict(zip((k.name for k in kernels), (k1, k2, k3)))
+def want_launches(kernels, k1: int, k2: int, k3: int, k4: int = 0, k5: int = 0) -> dict:
+    """K1..K5's wanted counts, for as many of them as ``kernels`` names."""
+    return dict(zip((k.name for k in kernels), (k1, k2, k3, k4, k5)))
 
 
 def check_launches(tag: str, got: dict, want: dict) -> None:
@@ -1978,6 +2123,7 @@ def check_vposer(dev, kernels, smi: str, workdir: Path):
     from psi_tpu_torch.body.vposer import vposer_decode
     from psi_tpu_torch.data.amass import make_synthetic_amass
     from psi_tpu_torch.nn import layers
+    from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
     from psi_tpu_torch.scripts.profile_fit import _device_us, device_events
     from psi_tpu_torch.train.vposer_trainer import VPoserTrainConfig, VPoserTrainer
     from psi_tpu_torch.utils.convert_torch import load_vposer
@@ -2013,11 +2159,15 @@ def check_vposer(dev, kernels, smi: str, workdir: Path):
         return evals[-1]
 
     tr._train_step, tr.evaluate = timed_step, kept_eval
+    split = (SPLIT_FWD, SPLIT_BWD)
+    for k in split:
+        k.launches = 0
     t0 = time.time()
     tr.evaluate()
     best = tr.perform_training(VPOSER_EPOCHS)
     torch.cuda.synchronize()
     out["train_s"] = time.time() - t0
+    out["split_launches_training"] = {k.name: k.launches for k in split}
     tr._train_step, tr.evaluate = inner_step, inner_eval
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["eval_loss_total"] = [e["loss_total"] for e in evals]
@@ -2032,6 +2182,11 @@ def check_vposer(dev, kernels, smi: str, workdir: Path):
         raise AssertionError(f"[vposer] the eval loss did not fall at every epoch: {curve}")
     if out["steps"] != VPOSER_EPOCHS * (VPOSER_FRAMES[0] // cfg.batch_size):
         raise AssertionError(f"[vposer] {out['steps']} steps in {VPOSER_EPOCHS} epochs")
+    # a step decodes the batch twice at 'high' (the original, no gradient, and the reconstruction): K4 4 times,
+    # K5 twice; an evaluation batch decodes twice without gradients
+    eval_batches = len(evals) * (VPOSER_FRAMES[1] // cfg.batch_size)
+    check_launches("[vposer] evaluate + perform_training", out["split_launches_training"],
+                   {SPLIT_FWD.name: 4 * (out["steps"] + eval_batches), SPLIT_BWD.name: 2 * out["steps"]})
 
     # one step under the profiler: device launches and busy time
     batch = next(tr.ds_train.batches(cfg.batch_size, np.random.default_rng(SEED + 70)))
@@ -2153,17 +2308,29 @@ def check_vposer(dev, kernels, smi: str, workdir: Path):
     objective = bmp._untangle_objective()
     with torch.no_grad():
         before = objective(bmp.poZ_body).item()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    bmp.untangle_interpenetrations()
-    torch.cuda.synchronize()
-    out["untangle_s"] = time.time() - t0
+    evaluations, build_objective = [0], bmp._untangle_objective
+
+    def counting_objective(*args, **kw):  # the L-BFGS evaluations of untangle's objective, counted
+        fn = build_objective(*args, **kw)
+
+        def evaluate(z):
+            evaluations[0] += 1
+            return fn(z)
+        return evaluate
+
+    bmp._untangle_objective = counting_objective
+    _, split_untangle, out["untangle_s"], _ = counted(split, bmp.untangle_interpenetrations)
+    out.update(untangle_evaluations=evaluations[0], split_launches_untangle=split_untangle)
+    # each evaluation decodes the body once at 'high' with the latent's gradient: K4 twice, K5 twice
+    check_launches("[vposer] untangle_interpenetrations", split_untangle,
+                   {SPLIT_FWD.name: 2 * evaluations[0], SPLIT_BWD.name: 2 * evaluations[0]})
     with torch.no_grad():
         after = objective(bmp.poZ_body).item()
     out.update(untangle_before=before, untangle_after=after)
     log(f"[vposer] BodyModelWithPoser on the card: randomize_pose, untangle_interpenetrations() at its defaults "
-        f"(L-BFGS, 30 iterations, 512 vertices, radius 0.04) in {out['untangle_s']:.3f} s: proxy objective "
-        f"{before:.6f} -> {after:.6f}")
+        f"(psi_tpu's L-BFGS, at most 30 iterations, 512 vertices, radius 0.04) in {out['untangle_s']:.3f} s: proxy "
+        f"objective {before:.6f} -> {after:.6f}; {evaluations[0]} evaluations, K4/K5 {split_untangle}; "
+        f"evaluate + perform_training K4/K5 {out['split_launches_training']}")
     if not (np.isfinite(after) and after < before):
         raise AssertionError("[vposer] the untangler did not lower the penalty")
 
@@ -2519,8 +2686,8 @@ SOAK_BF16_REL_TOL = 0.05
 
 
 def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, workdir: Path):
-    """Phase 21: the reference-exact fit tier (FitConfig.exact(): a full pass every iteration, 'high' LBS in strict
-    f32, f32 grids) at full width: profile_fused's six variants, N=16 card vs CPU, one exact call profiled,
+    """Phase 21: the reference-exact fit tier (FitConfig.exact(): a full pass every iteration, 'high' LBS with its
+    split-bf16 products on K4/K5, f32 grids) at full width: profile_fused's six variants, N=16 card vs CPU, one exact call profiled,
     profile_segments at 'fused' and 'high', profile_refresh_cadence, and cli.fitting_proxe --exact against
     FittingOP.fitting_files. Returns its record."""
     import argparse
@@ -2535,6 +2702,7 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
     from psi_tpu_torch.data.hdf5 import PROX_TEST_SCENES
     from psi_tpu_torch.fit.fitting import FittingOP, make_fit_step
     from psi_tpu_torch.gen.sample import TestOP
+    from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
     from psi_tpu_torch.scripts import profile_fused, profile_refresh_cadence, profile_segments
     from psi_tpu_torch.scripts.profile_fit import _device_us, device_events
     from psi_tpu_torch.utils.config import FitConfig
@@ -2542,6 +2710,8 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
     t_phase = time.time()
     out = {}
     assets_f32 = profile_fused.bench_assets(dev)
+    kernels = tuple(kernels) + (SPLIT_FWD, SPLIT_BWD)  # the 'high' tier's K4 and K5 beside K1-K3
+    per_call = 2 * NUM_ITER  # at 'high' a pass launches K4 for the correctives and the blend, K5 for their gradients
 
     # ---- profile_fused's six variants, launches asserted
     out["variants"] = profile_fused.run(dev, EXACT_GROUPS, EXACT_REPS, assets=(assets_f32, assets))
@@ -2549,7 +2719,8 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
         check_launches(f"[exact] {name}", r["launches"], want_launches(kernels, *r["expected_launches"]))
         if r["out_shape"] != [N_BODIES, 72] or not r["finite"]:
             raise AssertionError(f"[exact] {name}: fitted bodies not finite [N, 72] ({r['out_shape']})")
-    for name, want in (("exact_high", (0, 0, NUM_ITER)), ("exact_high_m20000", (0, 0, NUM_ITER)),
+    for name, want in (("exact_high", (0, 0, NUM_ITER, per_call, per_call)),
+                       ("exact_high_m20000", (0, 0, NUM_ITER, per_call, per_call)),
                        ("exact_fused", (NUM_ITER, NUM_ITER, NUM_ITER))):
         check_launches(f"[exact] {name}", out["variants"][name]["launches"], want_launches(kernels, *want))
     high = out["variants"]["exact_high"]
@@ -2624,9 +2795,9 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
         out["segments"][tier] = profile_segments.run(dev, tier, assets=assets, reps=EXACT_SEGMENT_REPS)
         for name, r in out["segments"][tier].items():
             fresh_nn, _, _ = profile_segments.SEGMENTS[name]
-            k12 = NUM_ITER if tier == "fused" else 0
+            k12, k45 = (NUM_ITER if tier == "fused" else 0), (per_call if tier == "high" else 0)
             check_launches(f"[exact] segment {name} at {tier}", r["launches"],
-                           want_launches(kernels, k12, k12, NUM_ITER if fresh_nn else 0))
+                           want_launches(kernels, k12, k12, NUM_ITER if fresh_nn else 0, k45, k45))
     out["cadence"] = profile_refresh_cadence.run(dev, EXACT_GROUPS, EXACT_REPS, assets=assets)
     for name, want in (("refresh10", (20, 20, 6)), ("refresh15", (20, 20, 6)), ("refresh20", (20, 20, 5))):
         check_launches(f"[exact] {name}", out["cadence"][name]["launches"], want_launches(kernels, *want))
@@ -2657,7 +2828,9 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
     _, direct_launches, direct_s, _ = counted(kernels, fit_directly)
     fitted = read_pickles(fit_dir)
     equal = same_bits_records(fitted, read_pickles(direct))
-    want = want_launches(kernels, 0, 0, len(scenes) * (NUM_ITER + 1))
+    # a chunk a scene: 20 passes and the final metrics pass (K4 twice, no gradient)
+    want = want_launches(kernels, 0, 0, len(scenes) * (NUM_ITER + 1), len(scenes) * (per_call + 2),
+                         len(scenes) * per_call)
     finite = all(np.isfinite(v).all() for r in fitted.values() for v in r.values())
     banner = buf.getvalue().strip().splitlines()
     out["cli_fitting_proxe_exact"] = {"launches": cli_launches, "wall_s": cli_s, "direct_launches": direct_launches,
@@ -2766,6 +2939,7 @@ def smoke(dev) -> None:
     from psi_tpu_torch.ops.chamfer import NN_ARGMIN
     from psi_tpu_torch.ops.fused_skinning import SKIN_BWD, SKIN_FWD, fused_skinning_fwd
     from psi_tpu_torch.ops.gather_probes import KERNELS as PROBES
+    from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
     from psi_tpu_torch.ops.prune import select_near_tiles
     from psi_tpu_torch.body.smplx_model import make_fused_bundle
     from psi_tpu_torch.utils.config import FitConfig
@@ -2791,6 +2965,7 @@ def smoke(dev) -> None:
             log(f"[build]   {line.strip()}")
     sass = sass_counts(lib_path)
     hmma = check_skinning_sass(sass["HMMA"])
+    split_hmma = check_split_sass(sass["HMMA"])
     k3_ffma = check_k3_sass(sass["FFMA"])
 
     # ---- inputs at full width, from the seed
@@ -2822,13 +2997,14 @@ def smoke(dev) -> None:
         y_pruned = select_near_tiles(y_full, contact.mean(dim=1), PRUNE).contiguous()
         k3 = check_k3(contact, y_pruned, y_full)
         path_batches = check_path_batches(cb, A12, cam12, bundle, contact, y_pruned)
+        split = check_split(assets, cb, A12, build_log)
 
     # ---- 6. the slice: one production generate+fit call through the kernels
     cfg = FitConfig.production(num_iter=NUM_ITER)
     run = make_generate_fit_step(model, assets, cfg, N_BODIES, want_metrics=False)
     kernels = (SKIN_FWD, SKIN_BWD, NN_ARGMIN)
     torch.cuda.synchronize()
-    for k in kernels:
+    for k in kernels + (SPLIT_FWD, SPLIT_BWD):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -2838,6 +3014,9 @@ def smoke(dev) -> None:
     first_s = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches = {k.name: k.launches for k in kernels}
+    launches_split = {k.name: k.launches for k in (SPLIT_FWD, SPLIT_BWD)}
+    check_launches("[slice] K4/K5 (the production fit decodes at 'fused')", launches_split,
+                   {SPLIT_FWD.name: 0, SPLIT_BWD.name: 0})
     want = {SKIN_FWD.name: NUM_ITER, SKIN_BWD.name: NUM_ITER, NN_ARGMIN.name: 6}
     loss0, loss_last = hist[0].mean().item(), hist[-1].mean().item()
     log(f"[slice] first call {first_s:.2f} s; launches {launches} (want {want}); "
@@ -2981,8 +3160,12 @@ def smoke(dev) -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # ---- the record: each kernel with the launch count of its path's run
+    # ---- the record: each kernel with the launch count of its path's run (K4/K5: the exact tier at 'high')
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
+    exact_high = exact["variants"]["exact_high"]["launches"]
+    split_main = split[f"correctives_b{N_BODIES}"]
+    results += [(SPLIT_FWD, {**split_main["k4"], "max_abs_err": split_main["fwd_max_abs"]}, exact_high),
+                (SPLIT_BWD, {**split_main["k5"], "max_abs_err": split_main["grad_max_abs"]}, exact_high)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": counts[k.name], "max_abs_err": res["max_abs_err"],
@@ -3011,10 +3194,23 @@ def smoke(dev) -> None:
     rows[2]["launches_by_path"].update(train_s1=train["s1"]["k3_launches"], train_s2=train["s2"]["k3_launches"],
                                        cli_train_s1=cli["launches"]["train_s1"][NN_ARGMIN.name],
                                        native_train_s1=native["k3_launches"])
+    # K4/K5 on every path that decodes at 'high', each counted from 0 just before it and read just after
+    for row, k in zip(rows[3:5], (SPLIT_FWD, SPLIT_BWD)):
+        row["launches_by_path"] = {
+            **{v: exact["variants"][v]["launches"][k.name] for v in ("exact_high", "exact_high_m20000",
+                                                                     "exact_fused")},
+            **{f"segment_{n}_high": r["launches"][k.name] for n, r in exact["segments"]["high"].items()},
+            "cli_fitting_proxe_exact": exact["cli_fitting_proxe_exact"]["launches"][k.name],
+            "train_s1_6_steps": train["s1"]["split_launches"][k.name],
+            "train_s2_6_steps": train["s2"]["split_launches"][k.name],
+            "vposer_evaluate_and_train": vposer["split_launches_training"][k.name],
+            "vposer_untangle": vposer["split_launches_untangle"][k.name], "eval_scorer": scores["split_launches"][k.name],
+            "generate_fit_s1": launches_split[k.name]}
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb},
                     "k1": {"stage_ms": k1["stage_ms"]},
                     "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"]}, "hmma": hmma,
+                    "split_hmma": split_hmma, "k4_k5": split,
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,

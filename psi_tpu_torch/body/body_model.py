@@ -10,9 +10,9 @@ As in psi_tpu, the untangler minimises a *sphere-proxy* self-penetration
 loss on subsampled vertices (the reference's path needs an external BVH
 CUDA extension, body_model.py:468-475): pairs of vertices closer than
 ``radius`` that are apart at rest are pushed apart, plus a latent prior
-pull. The minimiser is ``torch.optim.LBFGS(line_search_fn='strong_wolfe')``
-in place of psi_tpu's own L-BFGS (``psi_tpu.utils.lbfgs``), so the
-objective is psi_tpu's and the path to its minimum is torch's.
+pull. The minimiser is psi_tpu's own L-BFGS with a strong-Wolfe line
+search, ported as ``utils.lbfgs``: the objective, the stopping rules and
+the evaluation budget are psi_tpu's.
 
 Every wrapper runs on the first card unless ``device`` says otherwise.
 """
@@ -27,6 +27,7 @@ import torch
 
 from psi_tpu_torch.body.smplx_model import SMPLXModel, load_smplx_npz, smplx_forward, synthetic_smplx
 from psi_tpu_torch.body.vposer import VPoser, vposer_decode
+from psi_tpu_torch.utils.lbfgs import lbfgs_minimize
 from psi_tpu_torch.utils.tools import resolve_device
 
 
@@ -148,14 +149,4 @@ class BodyModelWithPoser(BodyModel):
         (``_untangle_objective``; replaces the reference's BVH-CUDA pathway,
         body_model.py:402-458)."""
         objective = self._untangle_objective(n_samples, radius, prior_weight, seed)
-        z = self.poZ_body.detach().clone().requires_grad_(True)
-        opt = torch.optim.LBFGS([z], max_iter=max_iter, line_search_fn="strong_wolfe")
-
-        def closure():
-            opt.zero_grad()
-            loss = objective(z)
-            loss.backward(inputs=[z])  # the prior's weights take no gradient
-            return loss
-
-        opt.step(closure)
-        self.poZ_body = z.detach()
+        self.poZ_body = lbfgs_minimize(objective, self.poZ_body, max_iter=max_iter).x

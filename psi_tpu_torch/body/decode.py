@@ -28,7 +28,8 @@ def body_vec_to_verts(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x72 [B, 72] -> (verts [B, V, 3], joints [B, J, 3]).
 
-    precision: 'high' (f32 einsum LBS), 'fast' (bf16-operand einsum LBS)
+    precision: 'high' (einsum LBS, its two large products split-bf16),
+    'fast' (bf16-operand einsum LBS)
     or 'fused' (the fused skinning kernel, at the 'fast' tier, with
     transl and camera folded in). fused_bundle: precomputed
     ``make_fused_bundle(smplx)``; pass it inside an optimisation loop.

@@ -6,14 +6,17 @@ pose-corrective blendshapes -> kinematic-tree rigid transform ->
 skinning. The kinematic tree composes all joints of one depth level in
 one batched matmul (SMPL-X is about ten levels deep).
 
-Precision tiers:
-* 'high' — float32 throughout. On the card the caller runs under
-  ``utils.precision.strict_f32`` so no matmul drops to TF32. (psi_tpu's
-  'high' is a split-bf16 emulation of f32 for the TPU's matrix unit;
-  the card does f32 natively, so that emulation is not ported.)
+Precision tiers, psi_tpu's:
+* 'high' — the two large contractions, the pose correctives and the
+  skinning blend, are split-bf16 products (``ops.precision``: about
+  2^-16 relative, ~16-bit mantissas, sub-0.1 mm at metre scale), kernels
+  K4 and K5 on the card; the rest is float32. Callers run it under
+  ``utils.precision.strict_f32`` so that no other matmul drops to TF32.
+  Its gradients carry bf16-rounded cotangents, as psi_tpu's do.
 * 'fast' — the three large contractions (joint regression, pose
   correctives, skinning blend) take bf16-rounded operands with float32
   accumulation, the numerics of psi_tpu's 'fast' tier on the TPU.
+``exact=True`` takes every contraction to plain float32 on either tier.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from psi_tpu_torch.geometry.rot6d import aa_to_matrix
+from psi_tpu_torch.ops.precision import einsum_f32x3, matmul_f32x3
 
 PRECISIONS = ("high", "fast")
 
@@ -101,6 +105,7 @@ def lbs(
     J_regressor: torch.Tensor,
     parents: Tuple[int, ...],
     lbs_weights: torch.Tensor,
+    exact: bool = False,
     precision: str = "high",
     joints_direct: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,14 +113,15 @@ def lbs(
 
     betas [B, L]; pose_aa [B, J*3] (joint 0 = global orient); v_template
     [V, 3]; shapedirs [V, 3, L]; posedirs [(J-1)*9, V*3] or None;
-    J_regressor [J, V]; lbs_weights [V, J]. joints_direct: the (j_template,
+    J_regressor [J, V]; lbs_weights [V, J]. exact: plain f32 for every
+    contraction, whatever ``precision`` says. joints_direct: the (j_template,
     j_shapedirs) pair of ``joint_regressor_direct``; the joints then come
     from betas directly, in f32 on every tier. Required when the per-vertex
     tensors are a vertex subset of the model (J_regressor is then unused).
     """
     if precision not in PRECISIONS:
         raise ValueError(f"lbs precision must be one of {PRECISIONS}, got {precision!r}")
-    fast = precision == "fast"
+    fast = precision == "fast" and not exact
     B = betas.shape[0]
     J = len(parents)
 
@@ -133,10 +139,12 @@ def lbs(
     if posedirs is not None:
         ident = torch.eye(3, dtype=v_shaped.dtype, device=v_shaped.device)
         pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)  # [B, (J-1)*9]
-        if fast:
+        if exact:
+            pose_offsets = torch.matmul(pose_feature, posedirs)
+        elif fast:
             pose_offsets = torch.matmul(_bf16(pose_feature), _bf16(posedirs))
         else:
-            pose_offsets = torch.matmul(pose_feature, posedirs)
+            pose_offsets = matmul_f32x3(pose_feature, posedirs)
         v_posed = v_shaped + pose_offsets.reshape(B, -1, 3)
     else:
         v_posed = v_shaped
@@ -145,10 +153,12 @@ def lbs(
 
     # only the top 3x4 of each transform varies: blend 12 values, not 16
     A12 = A[:, :, :3, :].reshape(B, J, 12)
-    if fast:
+    if exact:
+        T = torch.einsum("vj,bjz->bvz", lbs_weights, A12)
+    elif fast:
         T = torch.einsum("vj,bjz->bvz", _bf16(lbs_weights), _bf16(A12))
     else:
-        T = torch.einsum("vj,bjz->bvz", lbs_weights, A12)
+        T = einsum_f32x3("vj,bjz->bvz", lbs_weights, A12, a_axis=1, b_axis=1)
     T34 = T.reshape(B, -1, 3, 4)
     verts = torch.einsum("bvxy,bvy->bvx", T34[..., :3], v_posed) + T34[..., 3]
     return verts, posed_joints

@@ -42,8 +42,8 @@ def build_parser():
         choices=["high", "fast", "fused"],
         help="LBS tier inside the fit loss: 'fused' = one CUDA kernel "
         "for the whole vertex path (production default, bf16 class); "
-        "'fast' = single-pass bf16 products; 'high' = f32 with TF32 off "
-        "(the reference-exact tier)",
+        "'fast' = single-pass bf16 products; 'high' = split-bf16 parity "
+        "grade (the reference-exact tier)",
     )
     p.add_argument(
         "--exact", action="store_true",

@@ -2,7 +2,7 @@
 
 Port of ``psi_tpu.eval.collision`` (the protocol of the reference's
 utils_eval_collision_habitat.py:121-140): per body, decode the SMPL-X
-mesh at the 'high' tier (f32, TF32 off), look every vertex up in its
+mesh at the 'high' tier (TF32 off), look every vertex up in its
 scene's packed SDF; non-collision = the fraction of vertices with
 sdf > 0, contact = 1 if any vertex has sdf < 0. Scores are means over
 the population, computed on the device of the assets.

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels under ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call for ``sm_90a``
-into a shared library with a plain C interface, at first use, under
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+call, all of them at once, and linked into one shared library with a plain
+C interface, at first use, under
 ``build/kernels/`` beside the package (a directory git ignores). The
 library name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. The library
@@ -31,6 +32,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -44,7 +46,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, into the build log
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of every entry point: (argtypes); each returns int (cudaError_t)
 # unless RESTYPES says otherwise
 SIGNATURES: Dict[str, List] = {
@@ -59,8 +61,12 @@ SIGNATURES: Dict[str, List] = {
     "psi_probe_chained_gather": [_P] * 3 + [_I] * 4 + [_P],
     "psi_probe_relayout": [_P] * 2 + [_I] * 4 + [_P],
     "psi_probe_smem_opt_ins": [],
+    "psi_split_mm": [_P] * 3 + [_I] * 4 + [_L] * 7 + [_I] + [_L] * 4 + [_I, _P],
+    "psi_split_mm_grad_workspace": [_I] * 4,
+    "psi_split_mm_grad": [_P] * 4 + [_I] * 5 + [_L] * 7 + [_I] + [_L] * 4 + [_I, _I, _P],
 }
-RESTYPES = {"psi_skin_fwd_workspace": ctypes.c_size_t, "psi_skin_bwd_workspace": ctypes.c_size_t}
+RESTYPES = {"psi_skin_fwd_workspace": ctypes.c_size_t, "psi_skin_bwd_workspace": ctypes.c_size_t,
+            "psi_split_mm_grad_workspace": ctypes.c_size_t}
 
 _library: Optional[ctypes.CDLL] = None
 _build_lock = threading.RLock()  # library() holds it around build_library()
@@ -98,28 +104,35 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile csrc/*.cu into the hashed shared library unless it exists.
-    The compiler's output (ptxas resource usage) goes to ``<lib>.log``.
-    One thread of a process builds at a time; the others find the file."""
+    """Compile csrc/*.cu into the hashed shared library unless it exists:
+    one ``nvcc -c`` a source, all started together, then one link. The
+    compilers' output (ptxas resource usage) goes to ``<lib>.log``. One
+    thread of a process builds at a time; the others find the file."""
     out = library_path()
     with _build_lock:
         if out.exists():
             return out
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # a name of its own: another process building the same sources never shares it
-        fd, tmp_name = tempfile.mkstemp(prefix=f"{out.stem}.", suffix=".tmp.so", dir=BUILD_DIR)
-        os.close(fd)
-        tmp = Path(tmp_name)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources() if s.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = out.with_suffix(".log")
-        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.chmod(tmp, 0o755)  # mkstemp made it 0600
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+        # a directory of its own: another process building the same sources never shares it
+        with tempfile.TemporaryDirectory(prefix=f"{out.stem}.", dir=BUILD_DIR) as work:
+            cus = [s for s in sources() if s.suffix == ".cu"]
+            objs = [str(Path(work) / f"{s.stem}.o") for s in cus]
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            cmds = [[nvcc, *compile_flags, "-c", "-o", o, str(s)] for s, o in zip(cus, objs)]
+            tmp = str(Path(work) / out.name)
+            with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+                procs = list(pool.map(lambda c: subprocess.run(c, capture_output=True, text=True), cmds))
+            if all(p.returncode == 0 for p in procs):
+                cmds.append([nvcc, *NVCC_FLAGS, "-o", tmp, *objs])
+                procs.append(subprocess.run(cmds[-1], capture_output=True, text=True))
+            out.with_suffix(".log").write_text(
+                "".join(" ".join(c) + "\n" + p.stdout + p.stderr for c, p in zip(cmds, procs)))
+            failed = [p for p in procs if p.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed ({failed[0].returncode}):\n{failed[0].stderr[-4000:]}")
+            os.chmod(tmp, 0o755)
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
         return out
 
 

@@ -138,7 +138,7 @@ def soak(workdir: Path, device: torch.device, samples: int = 6144, epochs: int =
     from psi_tpu_torch.utils.config import LossConfig, TrainConfig
 
     cuda = device.type == "cuda"
-    kernels = launch_counters()
+    kernels = launch_counters(split=False)
 
     def sync():
         if cuda:

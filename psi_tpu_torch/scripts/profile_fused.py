@@ -23,7 +23,7 @@ Each variant: one warm-up call, which also gives its launch counts and
 peak device memory, then ``--groups`` groups of ``--reps`` calls, the host
 clock around each group ending in ``torch.cuda.synchronize()``. Prints a
 table and one JSON line with ``psi_tpu``'s keys per variant (median_s,
-ms_per_iter, bodies_per_sec, group_s) and beside them the K1/K2/K3 launches,
+ms_per_iter, bodies_per_sec, group_s) and beside them the K1–K5 launches,
 the peak device memory, the warm-up call's mean loss at iterations 0, 1 and
 the last, and the card's name and power limit. Needs an NVIDIA card.
 """
@@ -64,12 +64,15 @@ def variants(assets_f32: SceneAssets, assets_bf16: SceneAssets,
     }
 
 
-def expected_launches(cfg: FitConfig) -> Tuple[int, int, int]:
-    """K1, K2, K3 launches of one ``want_metrics=False`` call: the fused tier
-    runs K1 and K2 once a pass, and every pass but a cheap one searches."""
+def expected_launches(cfg: FitConfig) -> Tuple[int, int, int, int, int]:
+    """K1–K5 launches of one ``want_metrics=False`` call: the fused tier runs
+    K1 and K2 once a pass, the 'high' tier K4 twice (pose correctives, blend)
+    and K5 twice (their gradients) a pass, and every pass but a cheap one
+    searches (K3)."""
     kinds = fit_schedule(cfg)
     fused = len(kinds) if cfg.lbs_precision == "fused" else 0
-    return fused, fused, sum(k != "cheap" for k in kinds)
+    high = 2 * len(kinds) if cfg.lbs_precision == "high" else 0
+    return fused, fused, sum(k != "cheap" for k in kinds), high, high
 
 
 def fit_inputs(rng: np.random.Generator, n: int, count: int, device) -> Tuple[List[torch.Tensor], torch.Tensor,
@@ -85,11 +88,13 @@ def fit_inputs(rng: np.random.Generator, n: int, count: int, device) -> Tuple[Li
     return xs, cam_ext, scene_idx
 
 
-def launch_counters():
+def launch_counters(split: bool = True):
+    """K1, K2, K3 and, with ``split``, the 'high' tier's K4 and K5."""
     from psi_tpu_torch.ops.chamfer import NN_ARGMIN
     from psi_tpu_torch.ops.fused_skinning import SKIN_BWD, SKIN_FWD
+    from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
 
-    return SKIN_FWD, SKIN_BWD, NN_ARGMIN
+    return (SKIN_FWD, SKIN_BWD, NN_ARGMIN) + ((SPLIT_FWD, SPLIT_BWD) if split else ())
 
 
 def time_fit(fit, xs, cam_ext, scene_idx, groups: int, reps: int, num_iter: int, n: int) -> Dict:
@@ -138,7 +143,7 @@ def run(dev, groups: int = 10, reps: int = 2, assets: Optional[Tuple[SceneAssets
     assets_f32, assets_bf16 = (bench_assets(dev), bench_assets(dev, torch.bfloat16)) if assets is None else assets
     xs, cam_ext, scene_idx = fit_inputs(np.random.default_rng(0), N_BODIES, groups * reps, dev)
     results = {}
-    print(f"{'variant':<18} {'median s':>9} {'ms/iter':>8} {'bodies/s':>9}  spread  K1/K2/K3  peak GB", flush=True)
+    print(f"{'variant':<18} {'median s':>9} {'ms/iter':>8} {'bodies/s':>9}  spread  K1/K2/K3/K4/K5  peak GB", flush=True)
     for name, (a, cfg) in variants(assets_f32, assets_bf16).items():
         fit = make_fit_step(a, cfg, want_metrics=False)
         r = time_fit(fit, xs, cam_ext, scene_idx, groups, reps, NUM_ITER, N_BODIES)

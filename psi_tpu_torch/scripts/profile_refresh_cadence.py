@@ -9,7 +9,7 @@ port's counterpart of ``scripts/profile_refresh_cadence.py``.
 ``--groups`` groups of ``--reps`` calls on distinct body batches). A full
 pass runs at iterations 0 and 4 and then every r-th iteration: 0, 4, 14 for
 r=10; 0, 4, 19 for r=15; 0, 4 for r=20. K1/K2/K3 launch 20/20/6, 20/20/6
-and 20/20/5. Prints a table and one JSON line with ``psi_tpu``'s keys
+and 20/20/5 (K4/K5, the 'high' tier's, 0). Prints a table and one JSON line with ``psi_tpu``'s keys
 (median_s, ms_per_iter, bodies_per_sec) per cadence and, beside them, the
 group times, the launches, the peak device memory and the card's name and
 power limit. Needs an NVIDIA card.
@@ -46,7 +46,7 @@ def run(dev, groups: int = 8, reps: int = 2, assets: Optional[SceneAssets] = Non
         assets = bench_assets(dev, torch.bfloat16)
     xs, cam_ext, scene_idx = fit_inputs(np.random.default_rng(0), N_BODIES, groups * reps, dev)
     results = {}
-    print(f"{'cadence':<12} {'median s':>9} {'ms/iter':>8} {'bodies/s':>9}  spread  K1/K2/K3", flush=True)
+    print(f"{'cadence':<12} {'median s':>9} {'ms/iter':>8} {'bodies/s':>9}  spread  K1/K2/K3/K4/K5", flush=True)
     for name, (a, cfg) in variants(assets).items():
         r = time_fit(make_fit_step(a, cfg, want_metrics=False), xs, cam_ext, scene_idx, groups, reps, NUM_ITER,
                      N_BODIES)

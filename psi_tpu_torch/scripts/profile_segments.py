@@ -17,7 +17,7 @@ pass kind through ``fit.fitting._per_body_losses``:
 
 As in ``psi_tpu``, the frozen correspondences and cell cache are zeros: a
 segment measures cost, not a fit. Inputs are ``profile_fused``'s (N=256, the
-rng of seed 0). Each segment: one warm-up call, which gives its K1/K2/K3
+rng of seed 0). Each segment: one warm-up call, which gives its K1–K5
 launches, then 5 calls on other body batches, the host clock around them
 ending in ``torch.cuda.synchronize()``. Prints s a call and ms an iteration
 per segment, and one JSON line with the card's name and power limit. Needs
@@ -107,7 +107,7 @@ def run(dev, tier: str = "fused", assets: Optional[SceneAssets] = None, reps: in
     kernels = launch_counters()
     results = {}
     print(f"tier={tier}")
-    print(f"{'segment':<12} {'s/run':>8} {'ms/iter':>8}  K1/K2/K3", flush=True)
+    print(f"{'segment':<12} {'s/run':>8} {'ms/iter':>8}  K1/K2/K3/K4/K5", flush=True)
     for name, (fresh_nn, fresh_sdf, decode_only) in SEGMENTS.items():
         fn = build(assets, cfg, fresh_nn, fresh_sdf, decode_only)
         torch.cuda.synchronize(dev)

@@ -80,7 +80,7 @@ def scene_geometry_losses(
     mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(raw contact loss, raw collision loss) for reconstructed bodies: the
-    body-decode -> chamfer -> SDF chain at the 'high' (f32) LBS tier.
+    body-decode -> chamfer -> SDF chain at the 'high' LBS tier.
     prune_scene_points > 0 restricts the contact NN search to the K scene
     points nearest each body's contact centroid; 0 searches the whole cloud.
     With a mesh the collision loss is this rank's share of the whole batch's

@@ -2,7 +2,7 @@
 
 Port of ``psi_tpu.train.vposer_trainer`` (reference: human_body_prior/
 train/vposer_smpl.py:174-489): mesh-space L1 reconstruction x1000 through
-the body model ('high', f32 LBS) + analytic KL(q || N(0,1)), plus a
+the body model ('high' LBS) + analytic KL(q || N(0,1)), plus a
 pose-space MSE term while ``epoch < pose_rec_epochs`` (vposer_smpl.py:
 339-340); AdamW with weight decay on every parameter, at psi_tpu's
 ``optax.piecewise_constant_schedule`` (x0.5 at the optimizer-step counts

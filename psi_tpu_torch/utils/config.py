@@ -120,8 +120,9 @@ class FitConfig:
     # steps are the largest (~lr per coordinate), so frozen state is
     # stalest then.
     refresh_warmup: int = 4
-    # LBS precision inside the fit loss: 'high' = full f32 (psi_tpu:
-    # split-bf16 on the TPU's matrix unit); 'fast' = bf16 operands with
+    # LBS precision inside the fit loss: 'high' = f32 with the two large
+    # contractions as split-bf16 products (ops/precision.py, psi_tpu's);
+    # 'fast' = bf16 operands with
     # f32 accumulation for the three large LBS contractions; 'fused' =
     # the whole LBS vertex path (blendshapes + skinning + transl +
     # camera) as one kernel pair at the 'fast' tier

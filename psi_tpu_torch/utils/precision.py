@@ -4,10 +4,11 @@ A float32 matrix product on an NVIDIA card runs in full float32 unless
 ``torch.backends.cuda.matmul.allow_tf32`` is set, but a float32
 convolution goes through cuDNN in TF32 (about three decimal digits)
 unless ``torch.backends.cudnn.allow_tf32`` is cleared. The port's f32
-paths (the 'high' LBS tier, the scene trunk, the fit losses) are held to
-the JAX package in full float32, so their entry points run inside
-``strict_f32``. The 'fast' and 'fused' LBS tiers round their operands to
-bf16 explicitly instead; they never rely on TF32.
+paths (the 'high' LBS tier's products but its two split-bf16 ones, the
+scene trunk, the fit losses) are held to the JAX package in full float32,
+so their entry points run inside ``strict_f32``. The 'fast' and 'fused'
+LBS tiers and the split-bf16 products round their operands to bf16
+explicitly instead; they never rely on TF32.
 
 Both flags are process-global, and the serving path enters ``strict_f32``
 from several threads at once (one worker per model). So the context

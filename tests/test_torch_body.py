@@ -1,8 +1,10 @@
 """psi_tpu_torch.body vs psi_tpu.body at V=300, J=12 on identical models.
 
 Tolerances, by tier:
-* 'high': the port is f32; psi_tpu's 'high' emulates f32 with split-bf16
-  products (~2^-16 relative) -> 1e-4 absolute on metre-scale vertices.
+* 'high': both packages run the two large contractions as split-bf16
+  products (~2^-16 relative) on the same bf16 halves; only f32 sums taken
+  in another order differ -> 2e-5 absolute on metre-scale vertices
+  (measured 4.2e-6, through the VPoser decode; 1.9e-6 for lbs alone).
 * 'fast': the port rounds the large contractions' operands to bf16, the
   TPU's numerics; psi_tpu on the CPU computes 'fast' in plain f32 (its
   rounding happens inside the TPU's matrix unit) -> the bf16 input
@@ -31,7 +33,7 @@ from psi_tpu_torch.utils.convert_jax import SMPLX_FIELDS, smplx_from_numpy, vpos
 
 torch.set_num_threads(1)
 B, V, J = 5, 300, 12
-TOL = {"high": 1e-4, "fast": 2.5e-2, "fused": 1e-4}
+TOL = {"high": 2e-5, "fast": 2.5e-2, "fused": 1e-4}
 
 
 @pytest.fixture(scope="module")

@@ -21,9 +21,10 @@ What psi_tpu computes on the CPU, and so what each comparison holds
 (tests/test_torch_fit_knobs.py's reading): 'fused' runs psi_tpu's Pallas
 kernels in interpret mode, both sides rounding the same operands to bf16;
 'fast' is plain f32 in psi_tpu on the CPU, so the port's bf16 operand
-rounding is switched off (``t_lbs._bf16`` the identity); 'high' is a
-split-bf16 emulation of f32 in psi_tpu, so its LBS is patched to
-``exact=True``, plain f32 as the port's 'high' is.
+rounding is switched off (``t_lbs._bf16`` the identity); 'high' is the
+split-bf16 products in both packages: the ``_high_lbs`` tests compare them
+as they are, the others patch both packages' LBS to ``exact=True`` (plain
+f32), the comparison these tests made before the port had the split.
 
 Tolerances: the fits, tests/test_torch_fit.py's (iteration-0 loss 1e-4
 relative; fitted x72 drift max 5e-3, mean 5e-4; mean loss per iteration and
@@ -53,6 +54,7 @@ from psi_tpu.geometry.bodyvec import convert_to_3D_rot as j_to_3d
 from psi_tpu.geometry.bodyvec import convert_to_6D_rot as j_to_6d
 from psi_tpu.utils.config import FitConfig as JFitConfig
 from psi_tpu_torch.body import lbs as t_lbs
+from psi_tpu_torch.body import smplx_model as t_smplx_model
 from psi_tpu_torch.fit.fitting import fit_schedule, make_fit_step
 from psi_tpu_torch.scripts import profile_fused, profile_refresh_cadence, profile_segments
 from psi_tpu_torch.utils.config import FitConfig
@@ -62,26 +64,39 @@ torch.set_num_threads(1)
 NUM_ITER = 20
 SEGMENT_ITERS = 2
 SEGMENT_TOL = 1e-5
+# The split 'high' comparisons (the _high_lbs tests) run shorter. Both
+# gradients carry bf16-rounded cotangents and agree to ~5e-4 relative on
+# their smallest entries; Adam's second update divides moment sums that
+# nearly cancel where the first step (lr * sign(g)) overshot, which parts
+# the iterates by ~5e-3 from that update on, and over the exact tier's 20
+# iterations a few latent coordinates part by ~1e-1 (measured on this world:
+# 6 iterations 1.5e-4 max / 7e-6 mean, 10 iterations 2.5e-2, 20 8.9e-2). So
+# the fits hold 6 iterations (test_torch_fit.py's exact tier) and the segments
+# their first update, at the tolerances above.
+HIGH_NUM_ITER, HIGH_SEGMENT_ITERS = 6, 1
 METRICS = ("rec", "vposer", "contact", "collision", "total")
 FUSED_VARIANTS = ("refresh10_fast", "refresh10_fused", "exact_high", "exact_fast", "exact_fused", "exact_high_m20000")
+HIGH_VARIANTS = ("exact_high", "exact_high_m20000")
 # refresh10 of the cadence script is profile_fused's refresh10_fused, the same FitConfig
 CADENCE_VARIANTS = ("refresh15", "refresh20")
 
 
-def _same_tier_arithmetic(monkeypatch, precision):
-    """Make both packages compute the same arithmetic for ``precision``."""
+def _same_tier_arithmetic(monkeypatch, precision, split_high=False):
+    """Make both packages compute the same arithmetic for ``precision``:
+    'high' at exact=True in both, unless ``split_high`` keeps their split."""
     if precision == "fast":
         monkeypatch.setattr(t_lbs, "_bf16", lambda t: t)
-    elif precision == "high":
+    elif precision == "high" and not split_high:
         monkeypatch.setattr(j_smplx_model, "lbs", functools.partial(j_lbs, exact=True))
+        monkeypatch.setattr(t_smplx_model, "lbs", functools.partial(t_lbs.lbs, exact=True))
 
 
-def _variant(world, name):
+def _variant(world, name, num_iter=NUM_ITER):
     """(psi_tpu's assets, the port's assets, the port's FitConfig) of a variant."""
     grids = {id(world["assets"][g][1]): g for g in ("f32", "bf16")}
     _, ta_f32 = world["assets"]["f32"]
     _, ta_bf16 = world["assets"]["bf16"]
-    built = {**profile_fused.variants(ta_f32, ta_bf16, NUM_ITER), **profile_refresh_cadence.variants(ta_bf16, NUM_ITER)}
+    built = {**profile_fused.variants(ta_f32, ta_bf16, num_iter), **profile_refresh_cadence.variants(ta_bf16, num_iter)}
     ta, cfg = built[name]
     return world["assets"][grids[id(ta)]][0], ta, cfg
 
@@ -102,21 +117,33 @@ def test_variant_builders_name_the_scripts_configurations(world):
     assert cadence["refresh10"][1] == fused["refresh10_fused"][1]
     assert tuple(cadence) == ("refresh10",) + CADENCE_VARIANTS
     expected = {n: profile_fused.expected_launches(c) for n, (_, c) in {**fused, **cadence}.items()}
-    assert expected == {"refresh10_fast": (0, 0, 6), "refresh10_fused": (20, 20, 6), "exact_high": (0, 0, 20),
-                        "exact_fast": (0, 0, 20), "exact_fused": (20, 20, 20), "exact_high_m20000": (0, 0, 20),
-                        "refresh10": (20, 20, 6), "refresh15": (20, 20, 6), "refresh20": (20, 20, 5)}
+    # K1, K2, K3 and the 'high' tier's K4, K5 (two products a pass, each with its gradient)
+    assert expected == {"refresh10_fast": (0, 0, 6, 0, 0), "refresh10_fused": (20, 20, 6, 0, 0),
+                        "exact_high": (0, 0, 20, 40, 40), "exact_fast": (0, 0, 20, 0, 0),
+                        "exact_fused": (20, 20, 20, 0, 0), "exact_high_m20000": (0, 0, 20, 40, 40),
+                        "refresh10": (20, 20, 6, 0, 0), "refresh15": (20, 20, 6, 0, 0), "refresh20": (20, 20, 5, 0, 0)}
 
 
 @pytest.mark.parametrize("name", FUSED_VARIANTS + CADENCE_VARIANTS)
 def test_variant_fit_matches_psi_tpu(world, monkeypatch, name):
-    ja, ta, cfg = _variant(world, name)
-    _same_tier_arithmetic(monkeypatch, cfg.lbs_precision)
+    _variant_fit_matches(world, monkeypatch, name, split_high=False)
+
+
+@pytest.mark.parametrize("name", HIGH_VARIANTS)
+def test_variant_fit_matches_psi_tpu_high_lbs(world, monkeypatch, name):
+    _variant_fit_matches(world, monkeypatch, name, split_high=True)
+
+
+def _variant_fit_matches(world, monkeypatch, name, split_high):
+    num_iter = HIGH_NUM_ITER if split_high else NUM_ITER
+    ja, ta, cfg = _variant(world, name, num_iter)
+    _same_tier_arithmetic(monkeypatch, cfg.lbs_precision, split_high)
     x72, cam, sidx = _inputs(world)
     xj, mj, hj = j_make_fit_step(ja, JFitConfig(**dataclasses.asdict(cfg)))(
         jnp.asarray(x72), jnp.asarray(cam), jnp.asarray(sidx))
     xt, mt, ht = make_fit_step(ta, cfg)(torch.from_numpy(x72), torch.from_numpy(cam), torch.from_numpy(sidx))
     xj, hj, xt, ht = np.asarray(xj), np.asarray(hj), xt.numpy(), ht.numpy()
-    assert ht.shape == hj.shape == (NUM_ITER, N) and np.all(np.isfinite(xt))
+    assert ht.shape == hj.shape == (num_iter, N) and np.all(np.isfinite(xt))
     np.testing.assert_allclose(ht[0], hj[0], rtol=1e-4, atol=0)
     np.testing.assert_allclose(ht.mean(1), hj.mean(1), rtol=1e-3)
     d = np.abs(xt - xj)
@@ -186,16 +213,26 @@ def _jax_segment(ja, cfg, fresh_nn, fresh_sdf, decode_only, num_iter):
 @pytest.mark.parametrize("tier", ["fused", "high"])
 @pytest.mark.parametrize("segment", list(profile_segments.SEGMENTS))
 def test_segment_matches_psi_tpu(world, monkeypatch, tier, segment):
-    _same_tier_arithmetic(monkeypatch, tier)
+    _segment_matches(world, monkeypatch, tier, segment, split_high=False)
+
+
+@pytest.mark.parametrize("segment", list(profile_segments.SEGMENTS))
+def test_segment_matches_psi_tpu_high_lbs(world, monkeypatch, segment):
+    _segment_matches(world, monkeypatch, "high", segment, split_high=True)
+
+
+def _segment_matches(world, monkeypatch, tier, segment, split_high):
+    _same_tier_arithmetic(monkeypatch, tier, split_high)
+    iters = HIGH_SEGMENT_ITERS if split_high else SEGMENT_ITERS
     ja, ta = world["assets"]["bf16"]
-    cfg = FitConfig.production(num_iter=SEGMENT_ITERS, lbs_precision=tier)
+    cfg = FitConfig.production(num_iter=iters, lbs_precision=tier)
     fresh_nn, fresh_sdf, decode_only = profile_segments.SEGMENTS[segment]
     y_nn, cache = profile_segments.frozen_state(ta, N)
     x72, cam, sidx = _inputs(world)
-    xt = profile_segments.build(ta, cfg, fresh_nn, fresh_sdf, decode_only, SEGMENT_ITERS)(
+    xt = profile_segments.build(ta, cfg, fresh_nn, fresh_sdf, decode_only, iters)(
         torch.from_numpy(x72), torch.from_numpy(cam), torch.from_numpy(sidx), y_nn, cache)
     jcache = (jnp.asarray(cache[0].float().numpy()).astype(ja.sdf_packed.dtype), jnp.asarray(cache[1].numpy()))
-    xj = _jax_segment(ja, JFitConfig(**dataclasses.asdict(cfg)), fresh_nn, fresh_sdf, decode_only, SEGMENT_ITERS)(
+    xj = _jax_segment(ja, JFitConfig(**dataclasses.asdict(cfg)), fresh_nn, fresh_sdf, decode_only, iters)(
         jnp.asarray(x72), jnp.asarray(cam), jnp.asarray(sidx), jnp.asarray(y_nn.numpy()), jcache)
     assert xt.shape == (N, 75)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=SEGMENT_TOL, atol=SEGMENT_TOL)

@@ -811,3 +811,110 @@ def test_carried_adam_and_drivers_run_on_the_card(card, tmp_path):
         rec = pickle.load(f)
     assert all(type(v) is np.ndarray for v in rec.values()) and rec["transl"].shape == (1, 3)
     assert fit.fitting_files(str(tmp_path / "gen"), str(tmp_path / "fit")) == 0
+
+
+# ---- K4 and K5, the split-bf16 products of the 'high' LBS tier
+
+def _split_case(name, dev):
+    """(a, b, the split product, its contraction) on ``dev``, from a seed:
+    the correctives at a ragged width, one body and 130 bodies (several row
+    tiles), the blend at 13 bodies (N = 156 grouped by 12) and at one (N =
+    12: the narrow tile), a batched product, and a transposed (strided) lhs."""
+    from psi_tpu_torch.ops import precision as tp
+
+    rng = np.random.default_rng(3)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    def blend(w, a):
+        return torch.einsum("vj,bjz->bvz", w, a)
+
+    cases = {
+        "correctives": lambda: (t(5, 99), t(99, 900, scale=0.01), tp.matmul_f32x3, torch.matmul),
+        "correctives_b1": lambda: (t(1, 486), t(486, 3001, scale=0.01), tp.matmul_f32x3, torch.matmul),
+        "correctives_b130": lambda: (t(130, 486), t(486, 777, scale=0.01), tp.matmul_f32x3, torch.matmul),
+        "blend": lambda: (t(2051, 55).abs(), t(13, 55, 12),
+                          lambda w, a: tp.einsum_f32x3("vj,bjz->bvz", w, a, 1, 1), blend),
+        "blend_b1": lambda: (t(2051, 55).abs(), t(1, 55, 12),
+                             lambda w, a: tp.einsum_f32x3("vj,bjz->bvz", w, a, 1, 1), blend),
+        "batched": lambda: (t(4, 32, 55), t(4, 55, 16), tp.matmul_f32x3, torch.matmul),
+        "strided_lhs": lambda: (t(70, 33).T, t(70, 41), tp.matmul_f32x3, torch.matmul),
+    }
+    return cases[name]()
+
+
+SPLIT_CASES = ("correctives", "correctives_b1", "correctives_b130", "blend", "blend_b1", "batched", "strided_lhs")
+
+
+def _split_grads_close(got, want):
+    """K5 against the twin: the same bf16 cotangent blocks but for f32 sums
+    in another order, so on <= 1% of the elements a block rounds to the
+    neighbouring bf16; such an element moves by at most one bf16 ulp of the
+    operand's largest gradient (2^-7 of it)."""
+    differ = got != want
+    assert differ.float().mean().item() <= 0.01
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 2.0**-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_k4_k5_match_their_twins_and_are_deterministic(name, card):
+    from psi_tpu_torch.ops import precision as tp
+    from psi_tpu_torch.utils.precision import strict_f32
+
+    a, b, split, fn = _split_case(name, card)
+    shared_a = name.startswith("blend")  # the weights are shared by the bodies: no K5 for their gradient
+    with strict_f32():
+        n = (tp.SPLIT_FWD.launches, tp.SPLIT_BWD.launches)
+        x, y = a.clone().requires_grad_(not shared_a), b.clone().requires_grad_(True)
+        out = split(x, y)
+        again = split(a, b)
+        g = torch.randn(out.shape, generator=torch.Generator(device=card).manual_seed(4), device=card)
+        out.backward(g)
+        assert (tp.SPLIT_FWD.launches, tp.SPLIT_BWD.launches) == (n[0] + 2, n[1] + (1 if shared_a else 2))
+        ref = tp.split_product_reference(a, b, fn)
+        gref = tp.split_product_grad_reference(a, b, g, fn, (not shared_a, True))
+        x2, y2 = a.clone().requires_grad_(not shared_a), b.clone().requires_grad_(True)
+        split(x2, y2).backward(g)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.equal(out, again)
+    # the same exact bf16 products, the twin's sums in float64
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-6
+    for t1, t2, want in ((x, x2, gref[0]), (y, y2, gref[1])):
+        if want is None:
+            continue
+        assert torch.equal(t1.grad, t2.grad)  # no atomics: equal bits
+        _split_grads_close(t1.grad, want)
+
+
+@pytest.mark.cuda
+def test_k5_refuses_the_gradient_of_a_shared_operand(card):
+    """The blend's weights serve every body; their gradient sums over the
+    bodies, which K5 does not take: the card raises, and launches nothing."""
+    from psi_tpu_torch.ops import precision as tp
+
+    a, b, split, _ = _split_case("blend", card)
+    w = a.clone().requires_grad_(True)
+    out = split(w, b)
+    n = tp.SPLIT_BWD.launches
+    with pytest.raises(NotImplementedError, match="shared across the batch"):
+        out.sum().backward()
+    assert tp.SPLIT_BWD.launches == n
+
+
+@pytest.mark.cuda
+def test_k4_writes_only_its_output(card):
+    """The output placed inside a buffer of sentinels at a ragged shape:
+    every float outside [T, M, N] keeps its sentinel, every one inside is written."""
+    from psi_tpu_torch.ops import precision as tp
+
+    a, b, _, _ = _split_case("blend", card)
+    gm = tp.blend_gemm(a, b)
+    n, guard, sentinel = gm.T * gm.M * gm.N, 1031, -12345.0
+    buf = torch.full((n + 2 * guard,), sentinel, device=card)
+    out = tp.split_mm(gm, out=buf[guard:guard + n].view(gm.out_shape))
+    torch.cuda.synchronize()
+    assert torch.equal(out, tp.split_mm(gm))
+    assert bool((buf[:guard] == sentinel).all()) and bool((buf[guard + n:] == sentinel).all())
+    assert bool((out != sentinel).all())

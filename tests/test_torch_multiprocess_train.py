@@ -18,9 +18,20 @@ statistics: the ranks' E[x^2] - mean^2 against torch's variance of one
 batch, 1e-5 absolute and relative. The collision case: the term within 1e-5
 relative, each gradient within 5e-3 of its norm (the per-rank-mean average
 it guards against is off by 0.5 in both).
+
+The ranks and the one-rank reference decode the bodies at
+``lbs(exact=True)``, plain f32 (``exact_lbs``; the ranks get it from a
+``sitecustomize`` on their PYTHONPATH). At the default 'high' tier the
+cotangents are rounded to bf16 as in psi_tpu, so a gradient entry at noise
+level takes either sign with the last bits of the forward, which the ranks'
+half batches move; Adam's first update turns that into 2 lr on one weight
+(measured: one weight of resnet.4.0.conv2, its BatchNorm's running mean
+1.9e-5 apart after the second step). What these tests hold is the
+sharding, at the arithmetic that does not amplify last bits.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -30,6 +41,8 @@ import numpy as np
 import pytest
 import torch
 
+from psi_tpu_torch.body import smplx_model as t_smplx_model
+from psi_tpu_torch.body.lbs import lbs as t_lbs
 from psi_tpu_torch.cli import train as cli_train
 from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator
 from psi_tpu_torch.scripts import multiprocess_worker
@@ -45,6 +58,23 @@ CFG = TrainConfig(model_type="s1", latentD=LATENT, image_size=IMAGE, batch_size=
 LR = CFG.init_lr_h
 COLLISION_ONLY = LossConfig(weight_loss_rec_h=0.0, weight_loss_vposer=0.0, weight_loss_kl=0.0, weight_contact=0.0,
                             weight_collision=1.0)
+
+
+EXACT_LBS_SITE = """import functools
+from psi_tpu_torch.body import lbs, smplx_model
+smplx_model.lbs = functools.partial(lbs.lbs, exact=True)
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def exact_lbs(tmp_path_factory):
+    """lbs(exact=True) here and in every rank this module starts (module docstring)."""
+    site = tmp_path_factory.mktemp("site")
+    (site / "sitecustomize.py").write_text(EXACT_LBS_SITE)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(t_smplx_model, "lbs", functools.partial(t_lbs, exact=True))
+        m.setenv("PYTHONPATH", os.pathsep.join(filter(None, [str(site), os.environ.get("PYTHONPATH")])))
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -3,10 +3,10 @@ viz.sphere) against psi_tpu's on the same numpy inputs from a seed.
 
 Camera placement is numpy in both packages and is held in bits (the same
 ``default_rng`` seed, the same cameras). The body's re-expression decodes
-the pelvis through VPoser and SMPL-X: psi_tpu's LBS is patched to
-``exact=True`` (plain f32, what the port's 'high' computes; its default
-'high' emulates f32 with split-bf16 products) and the results are held to
-1e-5. The renderer is held as tests/test_torch_viz.py holds it: raw maps
+the pelvis through VPoser and SMPL-X: both packages' LBS is patched to
+``exact=True`` (plain f32), and the ``_high_lbs`` tests run both at their
+default 'high' (split-bf16 products on both sides); the results are held to
+1e-5 either way. The renderer is held as tests/test_torch_viz.py holds it: raw maps
 equal in >= 99.9% of pixels (a camera transform's matmul may round a
 triangle's depth to the next millimetre), canvases within 1e-6 of psi_tpu's
 preprocessing of the same raw maps, ``max_d`` and ``cam_ext`` equal. The
@@ -29,7 +29,9 @@ from psi_tpu.data import snapshots as j_snap
 from psi_tpu.data.matfile import load_test_snapshot as j_load_test_snapshot
 from psi_tpu.data.preprocessing import data_preprocessing as j_data_preprocessing
 from psi_tpu.viz import sphere as j_sphere
+from psi_tpu_torch.body import smplx_model as t_smplx_model
 from psi_tpu_torch.body.decode import body_vec_to_verts
+from psi_tpu_torch.body.lbs import lbs as t_lbs
 from psi_tpu_torch.body.smplx_model import synthetic_smplx
 from psi_tpu_torch.data import labelmap, snapshots
 from psi_tpu_torch.data.matfile import load_test_snapshot
@@ -50,6 +52,14 @@ N_VERTS = 80
 @pytest.fixture(autouse=True)
 def exact_jax_lbs(monkeypatch):
     monkeypatch.setattr(j_smplx_model, "lbs", functools.partial(j_lbs, exact=True))
+    monkeypatch.setattr(t_smplx_model, "lbs", functools.partial(t_lbs, exact=True))
+
+
+@pytest.fixture
+def split_lbs(monkeypatch):
+    """Both packages back at their default 'high' LBS (split-bf16)."""
+    monkeypatch.setattr(j_smplx_model, "lbs", j_lbs)
+    monkeypatch.setattr(t_smplx_model, "lbs", t_lbs)
 
 
 @pytest.fixture(scope="module")
@@ -170,6 +180,14 @@ def test_is_body_occluded_equal_on_a_grid_of_cases():
 
 
 def test_pelvis_offset_and_update_globalRT_match_psi_tpu(bodies):
+    _pelvis_matches(bodies)
+
+
+def test_pelvis_offset_and_update_globalRT_match_psi_tpu_high_lbs(bodies, split_lbs):
+    _pelvis_matches(bodies)
+
+
+def _pelvis_matches(bodies):
     jsm, jvp, sm, vp = bodies
     rng = np.random.default_rng(4)
     for latent in (True, False):
@@ -323,6 +341,14 @@ def test_produce_virtualcam_snapshots_matches_psi_tpu(bodies):
     """Three frames (the later ones reuse the first frame's delta_T in both
     packages), the default intrinsics, up to 5 cameras a frame: the same rows
     in the same order."""
+    _produce_matches(bodies)
+
+
+def test_produce_virtualcam_snapshots_matches_psi_tpu_high_lbs(bodies, split_lbs):
+    _produce_matches(bodies)
+
+
+def _produce_matches(bodies):
     jsm, jvp, sm, vp = bodies
     rng = np.random.default_rng(7)
     verts, labels = _room(rng)

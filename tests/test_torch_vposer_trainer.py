@@ -31,6 +31,8 @@ from psi_tpu.body.smplx_model import synthetic_smplx as j_synthetic_smplx
 from psi_tpu.data import amass as j_amass
 from psi_tpu.train.vposer_trainer import VPoserTrainConfig as JConfig
 from psi_tpu.train.vposer_trainer import VPoserTrainer as JTrainer
+from psi_tpu_torch.body import smplx_model as t_smplx_model
+from psi_tpu_torch.body.lbs import lbs as t_lbs
 from psi_tpu_torch.body.smplx_model import synthetic_smplx
 from psi_tpu_torch.data import amass
 from psi_tpu_torch.nn import layers
@@ -128,13 +130,13 @@ def _jax_step(tmp, data, model, batch, key, epoch, monkeypatch):
 
 
 def test_one_train_step_matches_psi_tpu(tmp_path, data, monkeypatch):
-    """The losses against psi_tpu's step as it is; the parameters after
-    AdamW against psi_tpu's step with its LBS at ``exact=True`` (patched
-    here): psi_tpu's 'high' tier emulates f32 with split-bf16 products whose
-    backward carries bf16 cotangents, ~1e-3 relative in the gradients, and
-    Adam's first update is lr * sign(g), so an entry whose gradient sits in
-    that noise moves by 2 lr on one side only. The port's 'high' is plain
-    f32, which is what exact=True computes."""
+    """The losses against psi_tpu's step as it is and with its LBS at
+    ``exact=True``, the port's LBS patched to ``exact=True`` too (plain
+    f32); the parameters after AdamW against psi_tpu's exact=True step:
+    'high' backward carries bf16 cotangents, ~1e-3 relative in the
+    gradients, and Adam's first update is lr * sign(g), so an entry whose
+    gradient sits in that noise moves by 2 lr on one side only."""
+    monkeypatch.setattr(t_smplx_model, "lbs", functools.partial(t_lbs, exact=True))
     tt = _port(tmp_path / "t", data)
     batch = next(tt.ds_train.batches(B, np.random.default_rng(1)))
     epoch = 1  # the pose term's gate is open (epochs_completed is raised before train_epoch)
@@ -144,13 +146,26 @@ def test_one_train_step_matches_psi_tpu(tmp_path, data, monkeypatch):
     jparams, jbs, jlosses_exact, masks_exact = _jax_step(tmp_path / "x", data, tt.model, batch, key, epoch,
                                                          monkeypatch)
     assert all(np.array_equal(a, b) for a, b in zip(masks, masks_exact))
-    eps = np.array(jax.random.normal(jax.random.split(key)[0], (B, 32)))
+    _port_step_matches(tt, batch, key, epoch, masks, (jlosses, jlosses_exact), jparams, jbs, monkeypatch)
 
+
+def test_one_train_step_matches_psi_tpu_high_lbs(tmp_path, data, monkeypatch):
+    """Both steps at their 'high' LBS (split-bf16 products, bf16 cotangents
+    on both sides): the losses and the parameters after AdamW."""
+    tt = _port(tmp_path / "t", data)
+    batch = next(tt.ds_train.batches(B, np.random.default_rng(1)))
+    epoch, key = 1, jax.random.PRNGKey(11)
+    jparams, jbs, jlosses, masks = _jax_step(tmp_path / "j", data, tt.model, batch, key, epoch, monkeypatch)
+    _port_step_matches(tt, batch, key, epoch, masks, (jlosses,), jparams, jbs, monkeypatch)
+
+
+def _port_step_matches(tt, batch, key, epoch, masks, jlosses_all, jparams, jbs, monkeypatch):
+    eps = np.array(jax.random.normal(jax.random.split(key)[0], (B, 32)))
     feed = [torch.from_numpy(m) for m in masks]
     monkeypatch.setattr(layers, "dropout_mask", lambda shape, keep, gen, device: feed.pop(0))
     losses = tt._train_step(torch.from_numpy(batch), epoch, eps=torch.from_numpy(eps))
     assert not feed and tt.step_count == 1
-    for want in (jlosses, jlosses_exact):
+    for want in jlosses_all:
         assert set(losses) == set(want)
         for k, v in want.items():
             assert abs(float(losses[k]) - float(v)) <= 1e-5 * abs(float(v)), (k, float(losses[k]), float(v))
