@@ -12,10 +12,10 @@ verts), with random weights made from a seed. Phases, one line each:
   1. device   torch / CUDA versions, the card's name and power limit
   2. build    nvcc builds csrc/*.cu into build/kernels (seconds printed);
               ptxas' registers and spills, and from cuobjdump the count of
-              tensor-core (HMMA) instructions in each of K1's and K2's
-              kernels and in each of the six instances of K4/K5's product
-              kernel (none may have 0) and of fused multiply-adds (FFMA) in
-              K3's (must be 0: its bits rest on no contraction)
+              tensor-core instructions: HMMA in each of K1's and K2's
+              kernels, HGMMA (wgmma) in each of the eight instances of K4/K5's
+              product kernel (none may have 0), and of fused multiply-adds
+              (FFMA) in K3's (must be 0: its bits rest on no contraction)
   3. K1       fused skinning forward vs its plain twin, two runs
               bit-equal; the time of each of its two launches beside the
               whole call, its registers and shared memory, its bound
@@ -33,9 +33,12 @@ verts), with random weights made from a seed. Phases, one line each:
               at B=256 and 1, K4 against its twin (float64 sums, within 2e-6
               of max |twin|) and K5, the gradient of the operand that varies
               per body, against its twin (<= 1% of elements differ, each by
-              at most one bf16 ulp of the largest); two runs equal in bits;
-              device time, each of K5's two launches, the bound, the twin
-              and the strict-f32 torch call the path ran before
+              at most one bf16 ulp of the largest), and at B=256 K5 for the
+              weights, which every body shares; two runs equal in bits; the
+              pack launch's planes equal to its twin's; device time and
+              effective TB/s, each of K5's two launches, the bound, the twin
+              and the strict-f32 torch call the path ran before; ptxas'
+              registers of each product kernel instance, 0 spill bytes
   6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6 (K4/K5 0),
               finite bodies, mean loss falling, peak device memory; then
               bodies/s
@@ -266,6 +269,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -476,10 +480,11 @@ SKIN_KERNELS = ("skin_pack_kernel", K1_MMA_KERNEL) + K2_MMA_KERNELS + ("reduce_t
 
 
 K3_KERNEL = "nn_argmin_kernel"
-SPLIT_KERNEL = "split_mm_kernel"  # K4 and K5's product kernel, in each of its tile and mode instances
+SPLIT_KERNEL = "split_wgmma_kernel"  # K4 and K5's product kernel, in each of its tile, mode and route instances
+SPLIT_INSTANCES = 8  # K4 and K5, each at 2 warpgroup tiles (2 x 1, 1 x 2), A read into registers or by the slab
 
 
-def sass_counts(lib_path, opcodes=("HMMA", "FFMA")):
+def sass_counts(lib_path, opcodes=("HMMA", "HGMMA", "FFMA")):
     """{opcode: {kernel function: count of instructions whose line holds the
     opcode}} in the library's SASS, from the cuobjdump beside nvcc."""
     from psi_tpu_torch.ops import _cuda
@@ -528,36 +533,67 @@ def check_skinning_sass(counts: dict):
     return found
 
 
+def split_instance(name: str) -> str:
+    """split_wgmma_kernel<mode, BN, WGN, route> from a mangled name."""
+    m = re.search(SPLIT_KERNEL + r"ILi(\d)ELi(\d+)ELi(\d)ELb(\d)E", name)
+    if m is None:
+        raise AssertionError(f"not an instance of {SPLIT_KERNEL}: {name}")
+    mode, bn, wgn, slab = m.groups()
+    return f"{('K4', 'K5')[int(mode)]}<{bn}x{wgn},{('registers', 'slab')[int(slab)]}>"
+
+
 def check_split_sass(counts: dict) -> dict:
     """Phase 2's tensor-core check for K4 and K5: every instance of their
-    product kernel (two tiles x forward and two gradient modes) holds HMMA."""
-    found = {fn: n for fn, n in counts.items() if SPLIT_KERNEL in fn}
-    log(f"[build]   {SPLIT_KERNEL}: {len(found)} instances, HMMA instructions {sorted(found.values())}")
-    if len(found) != 6 or not all(found.values()):
-        raise AssertionError(f"K4/K5's product kernel: {len(found)} instances, HMMA {found}")
+    product kernel holds wgmma (HGMMA in the SASS)."""
+    found = {split_instance(fn): n for fn, n in counts.items() if SPLIT_KERNEL in fn}
+    log(f"[build]   {SPLIT_KERNEL}: {len(found)} instances, HGMMA instructions {found}")
+    if len(found) != SPLIT_INSTANCES or not all(found.values()):
+        raise AssertionError(f"K4/K5's product kernel: {len(found)} instances, HGMMA {found}")
+    return found
+
+
+def split_ptxas(log_text: str) -> dict:
+    """ptxas' registers and spill bytes of each instance of K4/K5's product
+    kernel, from the build log; raises unless every instance spills 0 bytes."""
+    lines, found = log_text.splitlines(), {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and SPLIT_KERNEL in line:
+            info = " ".join(x.strip() for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x)
+            spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", info))
+            found[split_instance(line)] = {"ptxas": info, "spill_bytes": spills}
+    if len(found) != SPLIT_INSTANCES or any(v["spill_bytes"] for v in found.values()):
+        raise AssertionError(f"K4/K5's product kernel instances and their spills: {found}")
     return found
 
 
 def split_bounds(B: int, P: int, V3: int, V: int, J: int) -> dict:
     """The bounds of K4 and K5 at the path's two products: the pose correctives
     pf [B, P] @ posedirs [P, V3] and the blend w [V, J] . A12 [B, J, 12]. Each
-    reads its f32 operands once and writes its f32 output once. K4 does three
-    bf16 products of the operands' halves; K5 six (three parts of the f32
-    cotangent, each with both halves of the other operand)."""
+    reads its f32 operands once and writes its f32 output once ("bytes").
+    K4 does three bf16 products of the operands' halves; K5 six (three parts
+    of the f32 cotangent, each with both halves of the other operand)."""
     mm = 2 * B * P * V3
     blend = 2 * V * J * B * 12
-    return {"k4_correctives": bound(4 * (B * P + P * V3 + B * V3), bf16=3 * mm),
-            "k4_blend": bound(4 * (V * J + B * J * 12 + B * V * 12), bf16=3 * blend),
-            "k5_correctives": bound(4 * (B * V3 + P * V3 + B * P), bf16=6 * mm),
-            "k5_blend": bound(4 * (V * J + B * V * 12 + B * J * 12), bf16=6 * blend)}
+
+    def of(nbytes, ops):
+        return {"bytes": nbytes, **bound(nbytes, bf16=ops)}
+
+    return {"k4_correctives": of(4 * (B * P + P * V3 + B * V3), 3 * mm),
+            "k4_blend": of(4 * (V * J + B * J * 12 + B * V * 12), 3 * blend),
+            "k5_correctives": of(4 * (B * V3 + P * V3 + B * P), 6 * mm),
+            "k5_blend": of(4 * (V * J + B * V * 12 + B * J * 12), 6 * blend),
+            "k5_weights": of(4 * (B * V * 12 + B * J * 12 + V * J), 6 * blend)}
 
 
 def check_split(assets, cb, A12, build_log: str) -> dict:
     """Phase 5b: K4 and K5 against their twins at the 'high' tier's shapes on
     real bodies (phase 6's sampled population): the pose correctives at B =
-    256 and 32, the blend at B = 256 and 1, each cotangent seeded. Two runs
-    equal in bits; the times of the kernel, its twin, and the strict-f32
-    torch call that the path ran before the split, beside the bound."""
+    256 and 32, the blend at B = 256 and 1 (K5: A12's gradient), and at B =
+    256 K5 for the weights, which every body shares; each cotangent seeded.
+    Two runs equal in bits; the pack's planes equal to its twin's; the times
+    of the kernel, its twin, and the strict-f32 torch call that the path ran
+    before, beside the bound and the bytes a ms; ptxas' resources of every
+    product kernel instance, none spilling."""
     import torch
 
     from psi_tpu_torch.ops import _cuda
@@ -570,67 +606,76 @@ def check_split(assets, cb, A12, build_log: str) -> dict:
     def blend(w, a):
         return torch.einsum("vj,bjz->bvz", w, a)
 
-    # name -> (a, b, its Gemm's maker, the contraction, its split axes, the operand whose gradient K5 serves)
-    cases = {f"correctives_b{n}": (cb[:n, -P:].contiguous(), smplx.posedirs, tp.matmul_gemm, torch.matmul, (1, 0),
-                                   0) for n in (N_BODIES, 32)}
-    cases.update({f"blend_b{n}": (smplx.lbs_weights, A12[:n].contiguous(), tp.blend_gemm, blend, (1, 1), 1)
-                  for n in (N_BODIES, 1)})
+    # name -> (a, b, the forward's Gemm, the gradients', the contraction, the operand whose gradient K5
+    # serves, whether K4 is timed here, the strict-f32 call of that gradient)
+    cases = {f"correctives_b{n}": (cb[:n, -P:].contiguous(), smplx.posedirs, tp.matmul_gemm, tp.matmul_grad_gemms,
+                                   torch.matmul, 0, True, lambda a, b, g: g @ b.T) for n in (N_BODIES, 32)}
+    cases.update({f"blend_b{n}": (smplx.lbs_weights, A12[:n].contiguous(), tp.blend_gemm, tp.blend_grad_gemms, blend,
+                                  1, True, lambda a, b, g: torch.einsum("vj,bvz->bjz", a, g)) for n in (N_BODIES, 1)})
+    cases[f"blend_b{N_BODIES}_weights"] = (smplx.lbs_weights, A12.contiguous(), tp.blend_gemm, tp.blend_grad_gemms,
+                                           blend, 0, False, lambda a, b, g: torch.einsum("bvz,bjz->vj", g, b))
     gen = torch.Generator(device=cb.device).manual_seed(SEED + 5)
     out = {}
-    for name, (a, b, gemm, fn, axes, which) in cases.items():
+    for name, (a, b, gemm, grad_gemms, fn, which, fwd, library) in cases.items():
         gm = gemm(a, b)
         y1, y2 = tp.split_mm(gm), tp.split_mm(gm)
         ref = tp.split_product_reference(a, b, fn)
         g = torch.randn(gm.out_shape, generator=gen, device=cb.device)
-        sub = tp.grad_gemms(gm, g, (tuple(a.shape), tuple(b.shape)))[which]
-        cot_is_a = which == 0
-        g1, g2 = tp.split_mm_grad(sub, cot_is_a), tp.split_mm_grad(sub, cot_is_a)
         need = (which == 0, which == 1)
+        sub = grad_gemms(a, b, g, need)[which]
+        g1, g2 = tp.split_mm_grad(sub), tp.split_mm_grad(sub)
         gref = tp.split_product_grad_reference(a, b, g, fn, need)[which]
+        packs_equal = all(torch.equal(tp.pack(x, grad), tp.pack_reference(x, grad)) for x, grad in
+                          ((gm, False), (sub, True)))
         torch.cuda.synchronize()
         fwd_max_abs, grad_max_abs = (y1 - ref).abs().max().item(), (g1 - gref).abs().max().item()
         fwd_rel, grad_rel = fwd_max_abs / ref.abs().max().item(), grad_max_abs / gref.abs().max().item()
         # the same widened products summed in f32 by the torch call (cuBLAS), for scale
+        axes = (1, 0) if fn is torch.matmul else (1, 1)
         f32_sum = fn(tp.split3(a, axes[0]).float(), tp.split3_rhs(b, axes[1]).float())
         f32_sum_rel = ((f32_sum - ref).abs().max() / ref.abs().max()).item()
         differ = (g1 != gref).double().mean().item()
         equal = torch.equal(y1, y2) and torch.equal(g1, g2)
-        args, _, _keep = tp.grad_operands(sub, cot_is_a)
-        B = a.shape[0] if which == 0 else b.shape[0]
+        args, _, _keep = tp.grad_operands(sub)
+        B = b.shape[0] if fn is blend else a.shape[0]
         bnd = split_bounds(B, P, smplx.posedirs.shape[1], smplx.num_verts, smplx.num_joints)
-        kind = "correctives" if which == 0 else "blend"
+        kind = "correctives" if fn is torch.matmul else "weights" if which == 0 else "blend"
         r = {"B": B, "fwd_rel": fwd_rel, "fwd_max_abs": fwd_max_abs, "f32_sum_rel": f32_sum_rel,
              "grad_differ_share": differ, "grad_rel": grad_rel, "grad_max_abs": grad_max_abs, "equal_bits": equal,
-             "k4": {"ms": cuda_ms(lambda: tp.split_mm(gm)), "device_ms": cuda_device_ms(lambda: tp.split_mm(gm)),
-                    "plain_ms": cuda_ms(lambda: tp.split_product_reference(a, b, fn)),
-                    "library_ms": cuda_ms(lambda: fn(a, b)),
-                    "library_device_ms": cuda_device_ms(lambda: fn(a, b)), **bnd[f"k4_{kind}"]},
-             "k5": {"ms": cuda_ms(lambda: tp.split_mm_grad(sub, cot_is_a)),
-                    "device_ms": cuda_device_ms(lambda: tp.split_mm_grad(sub, cot_is_a)),
+             "packs_equal": packs_equal,
+             "k5": {"ms": cuda_ms(lambda: tp.split_mm_grad(sub)), "device_ms": cuda_device_ms(lambda: tp.split_mm_grad(sub)),
                     "plain_ms": cuda_ms(lambda: tp.split_product_grad_reference(a, b, g, fn, need)),
                     "stage_ms": stage_ms("psi_split_mm_grad", args, tp.BWD_STAGES, tp.BWD_ALL, _cuda.stream_of(g)),
-                    **bnd[f"k5_{kind}"]}}
-        # the strict-f32 torch call of the gradient the path ran before: g @ posedirs^T, or the blend's transpose
-        r["k5"]["library_ms"] = cuda_ms(
-            (lambda: g @ b.T) if which == 0 else (lambda: torch.einsum("vj,bvz->bjz", a, g)))
-        r["k5"]["library_device_ms"] = cuda_device_ms(
-            (lambda: g @ b.T) if which == 0 else (lambda: torch.einsum("vj,bvz->bjz", a, g)))
+                    "library_ms": cuda_ms(lambda: library(a, b, g)),
+                    "library_device_ms": cuda_device_ms(lambda: library(a, b, g)), **bnd[f"k5_{kind}"]}}
+        if fwd:
+            r["k4"] = {"ms": cuda_ms(lambda: tp.split_mm(gm)), "device_ms": cuda_device_ms(lambda: tp.split_mm(gm)),
+                       "plain_ms": cuda_ms(lambda: tp.split_product_reference(a, b, fn)),
+                       "library_ms": cuda_ms(lambda: fn(a, b)),
+                       "library_device_ms": cuda_device_ms(lambda: fn(a, b)), **bnd[f"k4_{'correctives' if fn is torch.matmul else 'blend'}"]}
         out[name] = r
-        k4, k5 = r["k4"], r["k5"]
         log(f"[K4/K5] {name}: forward max |K4 - twin| / max |twin| {fwd_rel:.3e} (tol {K4_REL_TOL}; the same "
             f"products summed in f32 by torch: {f32_sum_rel:.3e}); "
             f"K5's gradient differs from the twin's on {100 * differ:.4f}% of elements (tol {100 * K5_DIFFER_SHARE}%), "
-            f"by at most {grad_rel:.3e} of its largest (tol {K5_ULP_REL:.3e}); two runs equal in bits: {equal}")
-        log(f"[K4/K5]   K4 {k4['device_ms']:.4f} ms on the device ({k4['ms']:.4f} a call; bound {k4['bound_ms']:.4f} "
-            f"ms, {k4['bound_by']}: {k4['device_ms'] / k4['bound_ms']:.1f}x), twin {k4['plain_ms']:.4f} ms, strict-f32 "
-            f"torch {k4['library_device_ms']:.4f} ms on the device; K5 {k5['device_ms']:.4f} ms ("
-            + ", ".join(f"{n} {v:.4f}" for n, v in k5["stage_ms"].items())
-            + f"; bound {k5['bound_ms']:.4f} ms, {k5['bound_by']}: {k5['device_ms'] / k5['bound_ms']:.1f}x), twin "
-            f"{k5['plain_ms']:.4f} ms, strict-f32 torch {k5['library_device_ms']:.4f} ms")
-        if not (fwd_rel <= K4_REL_TOL and differ <= K5_DIFFER_SHARE and grad_rel <= K5_ULP_REL and equal):
+            f"by at most {grad_rel:.3e} of its largest (tol {K5_ULP_REL:.3e}); two runs equal in bits: {equal}; "
+            f"packed planes equal to the twin's: {packs_equal}")
+        for tag, res in (("K4", r.get("k4")), ("K5", r["k5"])):
+            if res is None:
+                continue
+            launches = "".join(f", {n} {v:.4f}" for n, v in res.get("stage_ms", {}).items())
+            log(f"[K4/K5]   {tag} {res['device_ms']:.4f} ms on the device ({res['ms']:.4f} a call{launches}), "
+                f"{res['bytes'] / res['device_ms'] / 1e9:.3f} TB/s effective; bound {res['bound_ms']:.4f} ms, "
+                f"{res['bound_by']}: {res['device_ms'] / res['bound_ms']:.1f}x; twin {res['plain_ms']:.4f} ms; "
+                f"strict-f32 torch {res['library_device_ms']:.4f} ms on the device "
+                f"({res['library_device_ms'] / res['device_ms']:.2f}x K4/K5's time)")
+        if not (fwd_rel <= K4_REL_TOL and differ <= K5_DIFFER_SHARE and grad_rel <= K5_ULP_REL and equal
+                and packs_equal):
             raise AssertionError(f"[K4/K5] {name}: K4 or K5 disagrees with its twin or is not deterministic: {r}")
-    log("[K4/K5] ptxas: " + "; ".join(ptxas_usage(build_log, f"{SPLIT_KERNEL}ILi{bn}ELi{wn}ELi{mode}E")
-                                      for bn, wn in ((64, 2), (16, 1)) for mode in (0, 1, 2)))
+    resources = split_ptxas(build_log)
+    log("[K4/K5] ptxas: " + "; ".join(f"{k}: {v['ptxas']}" for k, v in resources.items()))
+    log(f"[K4/K5] packed planes kept for constant operands: {tp.PACKS.nbytes() / 1e6:.1f} MB")
+    out["ptxas"] = resources
+    out["packs_mb"] = tp.PACKS.nbytes() / 1e6
     return out
 
 
@@ -2965,7 +3010,7 @@ def smoke(dev) -> None:
             log(f"[build]   {line.strip()}")
     sass = sass_counts(lib_path)
     hmma = check_skinning_sass(sass["HMMA"])
-    split_hmma = check_split_sass(sass["HMMA"])
+    split_hgmma = check_split_sass(sass["HGMMA"])
     k3_ffma = check_k3_sass(sass["FFMA"])
 
     # ---- inputs at full width, from the seed
@@ -3210,7 +3255,7 @@ def smoke(dev) -> None:
                               "peak_gb": peak_gb},
                     "k1": {"stage_ms": k1["stage_ms"]},
                     "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"]}, "hmma": hmma,
-                    "split_hmma": split_hmma, "k4_k5": split,
+                    "split_hgmma": split_hgmma, "k4_k5": split,
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,

@@ -61,9 +61,10 @@ SIGNATURES: Dict[str, List] = {
     "psi_probe_chained_gather": [_P] * 3 + [_I] * 4 + [_P],
     "psi_probe_relayout": [_P] * 2 + [_I] * 4 + [_P],
     "psi_probe_smem_opt_ins": [],
-    "psi_split_mm": [_P] * 3 + [_I] * 4 + [_L] * 7 + [_I] + [_L] * 4 + [_I, _P],
-    "psi_split_mm_grad_workspace": [_I] * 4,
-    "psi_split_mm_grad": [_P] * 4 + [_I] * 5 + [_L] * 7 + [_I] + [_L] * 4 + [_I, _I, _P],
+    "psi_split_pack": [_P] * 2 + [_I] * 5 + [_L] * 4 + [_I, _P],
+    "psi_split_mm": [_P] * 3 + [_I] * 8 + [_L] * 6 + [_I] + [_L] * 4 + [_I, _P],
+    "psi_split_mm_grad_workspace": [_I] * 6,
+    "psi_split_mm_grad": [_P] * 4 + [_I] * 8 + [_L] * 6 + [_I] + [_L] * 4 + [_I, _I, _P],
 }
 RESTYPES = {"psi_skin_fwd_workspace": ctypes.c_size_t, "psi_skin_bwd_workspace": ctypes.c_size_t,
             "psi_split_mm_grad_workspace": ctypes.c_size_t}

@@ -16,6 +16,7 @@ tile, clouds not a multiple of a shared-memory tile.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -817,9 +818,12 @@ def test_carried_adam_and_drivers_run_on_the_card(card, tmp_path):
 
 def _split_case(name, dev):
     """(a, b, the split product, its contraction) on ``dev``, from a seed:
-    the correctives at a ragged width, one body and 130 bodies (several row
-    tiles), the blend at 13 bodies (N = 156 grouped by 12) and at one (N =
-    12: the narrow tile), a batched product, and a transposed (strided) lhs."""
+    the correctives at a ragged width (K = 99 and 486: not a multiple of a
+    wgmma k step or of a ring stage of 64; N = 900 and 3001: not of a
+    128-column panel), at one body, 32 (one 64-row tile, the warpgroups on
+    two column halves) and 130 (past a block's 128 rows); the blend at 13
+    bodies and at one; a batched product, a transposed (strided) lhs, and a
+    2-D lhs under a batched rhs (its gradient sums over the batch)."""
     from psi_tpu_torch.ops import precision as tp
 
     rng = np.random.default_rng(3)
@@ -833,6 +837,7 @@ def _split_case(name, dev):
     cases = {
         "correctives": lambda: (t(5, 99), t(99, 900, scale=0.01), tp.matmul_f32x3, torch.matmul),
         "correctives_b1": lambda: (t(1, 486), t(486, 3001, scale=0.01), tp.matmul_f32x3, torch.matmul),
+        "correctives_b32": lambda: (t(32, 486), t(486, 3001, scale=0.01), tp.matmul_f32x3, torch.matmul),
         "correctives_b130": lambda: (t(130, 486), t(486, 777, scale=0.01), tp.matmul_f32x3, torch.matmul),
         "blend": lambda: (t(2051, 55).abs(), t(13, 55, 12),
                           lambda w, a: tp.einsum_f32x3("vj,bjz->bvz", w, a, 1, 1), blend),
@@ -840,11 +845,13 @@ def _split_case(name, dev):
                              lambda w, a: tp.einsum_f32x3("vj,bjz->bvz", w, a, 1, 1), blend),
         "batched": lambda: (t(4, 32, 55), t(4, 55, 16), tp.matmul_f32x3, torch.matmul),
         "strided_lhs": lambda: (t(70, 33).T, t(70, 41), tp.matmul_f32x3, torch.matmul),
+        "shared_lhs": lambda: (t(40, 70), t(3, 70, 50), tp.matmul_f32x3, torch.matmul),
     }
     return cases[name]()
 
 
-SPLIT_CASES = ("correctives", "correctives_b1", "correctives_b130", "blend", "blend_b1", "batched", "strided_lhs")
+SPLIT_CASES = ("correctives", "correctives_b1", "correctives_b32", "correctives_b130", "blend", "blend_b1",
+               "batched", "strided_lhs", "shared_lhs")
 
 
 def _split_grads_close(got, want):
@@ -864,43 +871,45 @@ def test_k4_k5_match_their_twins_and_are_deterministic(name, card):
     from psi_tpu_torch.utils.precision import strict_f32
 
     a, b, split, fn = _split_case(name, card)
-    shared_a = name.startswith("blend")  # the weights are shared by the bodies: no K5 for their gradient
     with strict_f32():
         n = (tp.SPLIT_FWD.launches, tp.SPLIT_BWD.launches)
-        x, y = a.clone().requires_grad_(not shared_a), b.clone().requires_grad_(True)
+        x, y = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
         out = split(x, y)
         again = split(a, b)
         g = torch.randn(out.shape, generator=torch.Generator(device=card).manual_seed(4), device=card)
         out.backward(g)
-        assert (tp.SPLIT_FWD.launches, tp.SPLIT_BWD.launches) == (n[0] + 2, n[1] + (1 if shared_a else 2))
+        assert (tp.SPLIT_FWD.launches, tp.SPLIT_BWD.launches) == (n[0] + 2, n[1] + 2)
         ref = tp.split_product_reference(a, b, fn)
-        gref = tp.split_product_grad_reference(a, b, g, fn, (not shared_a, True))
-        x2, y2 = a.clone().requires_grad_(not shared_a), b.clone().requires_grad_(True)
+        gref = tp.split_product_grad_reference(a, b, g, fn)
+        x2, y2 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
         split(x2, y2).backward(g)
     torch.cuda.synchronize()
     assert out.shape == ref.shape and torch.equal(out, again)
     # the same exact bf16 products, the twin's sums in float64
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-6
     for t1, t2, want in ((x, x2, gref[0]), (y, y2, gref[1])):
-        if want is None:
-            continue
         assert torch.equal(t1.grad, t2.grad)  # no atomics: equal bits
         _split_grads_close(t1.grad, want)
 
 
 @pytest.mark.cuda
-def test_k5_refuses_the_gradient_of_a_shared_operand(card):
-    """The blend's weights serve every body; their gradient sums over the
-    bodies, which K5 does not take: the card raises, and launches nothing."""
+def test_k5_serves_the_gradient_of_a_shared_operand(card):
+    """The blend's weights serve every body and a 2-D lhs every product of
+    a batched rhs: their gradients sum over the batch inside K5's grouped
+    contraction, before the bf16 rounding, and match the twin; one K5 launch
+    each, and the operand the batch does not share gets none."""
     from psi_tpu_torch.ops import precision as tp
 
-    a, b, split, _ = _split_case("blend", card)
-    w = a.clone().requires_grad_(True)
-    out = split(w, b)
-    n = tp.SPLIT_BWD.launches
-    with pytest.raises(NotImplementedError, match="shared across the batch"):
-        out.sum().backward()
-    assert tp.SPLIT_BWD.launches == n
+    for name, shared in (("blend", 0), ("shared_lhs", 0)):
+        a, b, split, fn = _split_case(name, card)
+        w = a.clone().requires_grad_(True)
+        out = split(w, b)
+        g = torch.randn(out.shape, generator=torch.Generator(device=card).manual_seed(5), device=card)
+        n = tp.SPLIT_BWD.launches
+        out.backward(g)
+        assert tp.SPLIT_BWD.launches == n + 1
+        torch.cuda.synchronize()
+        _split_grads_close(w.grad, tp.split_product_grad_reference(a, b, g, fn, (True, False))[shared])
 
 
 @pytest.mark.cuda
@@ -911,10 +920,42 @@ def test_k4_writes_only_its_output(card):
 
     a, b, _, _ = _split_case("blend", card)
     gm = tp.blend_gemm(a, b)
-    n, guard, sentinel = gm.T * gm.M * gm.N, 1031, -12345.0
+    n, guard, sentinel = math.prod(gm.out_shape), 1031, -12345.0
     buf = torch.full((n + 2 * guard,), sentinel, device=card)
     out = tp.split_mm(gm, out=buf[guard:guard + n].view(gm.out_shape))
     torch.cuda.synchronize()
     assert torch.equal(out, tp.split_mm(gm))
     assert bool((buf[:guard] == sentinel).all()) and bool((buf[guard + n:] == sentinel).all())
     assert bool((out != sentinel).all())
+
+
+@pytest.mark.cuda
+def test_pack_matches_its_twin_and_the_cache_follows_its_source(card):
+    """The pack launch's planes equal pack_reference's in bits, for K4's and
+    K5's layouts, a grouped contraction and a batched B; a B that takes no
+    gradient is packed once, repacked after an in-place change, and the
+    product follows the change."""
+    from psi_tpu_torch.ops import precision as tp
+
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy(rng.random((2051, 55)).astype(np.float32)).to(card)
+    a12 = torch.from_numpy(rng.normal(size=(13, 55, 12)).astype(np.float32)).to(card)
+    bb = torch.from_numpy(rng.normal(size=(4, 55, 16)).astype(np.float32)).to(card)
+    g = torch.ones(13, 2051, 12, device=card)
+    for gm, grad in ((tp.blend_gemm(w, a12), False), (tp.blend_grad_gemms(w, a12, g, (True, True))[0], True),
+                     (tp.blend_grad_gemms(w, a12, g, (True, True))[1], True),
+                     (tp.matmul_gemm(torch.ones(4, 32, 55, device=card), bb), False)):
+        tp.PACKS.clear()
+        assert torch.equal(tp.pack(gm, grad), tp.pack_reference(gm, grad))
+    tp.PACKS.clear()
+    pd = torch.from_numpy(rng.normal(size=(486, 3001)).astype(np.float32) * 0.01).to(card)
+    pf = torch.from_numpy(rng.normal(size=(32, 486)).astype(np.float32)).to(card)
+    n = tp.SPLIT_PACK.launches
+    first = tp.matmul_f32x3(pf, pd)
+    assert torch.equal(tp.matmul_f32x3(pf, pd), first) and tp.SPLIT_PACK.launches == n + 1
+    pd.mul_(2.0)
+    second = tp.matmul_f32x3(pf, pd)
+    torch.cuda.synchronize()
+    assert tp.SPLIT_PACK.launches == n + 2 and torch.equal(second, 2.0 * first)
+    del pd
+    assert tp.PACKS.nbytes() == 0

@@ -11,9 +11,12 @@ element), where the two f32 sums of a cotangent block land on either side
 of a bf16 rounding point.
 
 Then the CPU's view of the kernels: each product laid out as K4 and K5
-read it (``Gemm``, through its strides) and computed with K4's and K5's
-arithmetic in float64 (exact products, the hi/lo and three-part cuts,
-the combine), held to the twins as the card holds the kernels.
+read it (``Gemm``: the register operand through its strides and grouped
+axes, the other operand from its packed bf16 planes at the kernel's
+addresses) and computed with K4's and K5's arithmetic in float64 (exact
+products, the hi/lo and three-part cuts, the combine), held to the twins
+as the card holds the kernels; the gradient of an operand the batch
+shares among them; the pack cache.
 
 And ``lbs`` at 'high' against psi_tpu's unpatched 'high', and at
 ``exact=True`` against psi_tpu's ``exact=True``, on the small SMPL-X model
@@ -119,21 +122,54 @@ def test_split_is_psi_tpus_and_more_accurate_than_bf16():
 
 # ---- the kernels' arithmetic on the kernels' layouts, in float64
 
-def _offsets(lay: tp.Layout, T: int, R: int, C: int) -> torch.Tensor:
-    t, r, c = torch.arange(T)[:, None, None], torch.arange(R)[None, :, None], torch.arange(C)[None, None, :]
-    return t * lay.st + r * lay.sr + (c // lay.g) * lay.sq + (c % lay.g) * lay.sc
+def _read_a(gm: tp.Gemm) -> torch.Tensor:
+    """The [T, m.size, k.size] matrices that the kernels read into registers
+    through gm.sa, in float64; zero where a row or a k does not exist."""
+    t = torch.arange(gm.T)[:, None, None]
+    m, k = torch.arange(gm.m.size)[None, :, None], torch.arange(gm.k.size)[None, None, :]
+    mq, mr, kq, kr = m // gm.m.r, m % gm.m.r, k // gm.k.r, k % gm.k.r
+    ok = (mq < gm.m.q) & (mr < gm.m.g) & (kq < gm.k.q) & (kr < gm.k.g)
+    off = (t * gm.sa[0] + mq * gm.sa[1] + mr * gm.sa[2] + kq * gm.sa[3] + kr * gm.sa[4]) * ok
+    flat = torch.as_strided(gm.a, (int(off.max()) + 1,), (1,))
+    return torch.where(ok, flat[off], 0.0).to(torch.float64)
 
 
-def _read(x: torch.Tensor, lay: tp.Layout, T: int, R: int, C: int) -> torch.Tensor:
-    """The [T, R, C] matrices that a kernel reads from x through ``lay``, in float64."""
-    off = _offsets(lay, T, R, C)
-    return torch.as_strided(x, (int(off.max()) + 1,), (1,))[off].to(torch.float64)
+def _read_b(gm: tp.Gemm, grad: bool):
+    """B's hi and lo halves [T, k.size, N] as the kernel reads the packed
+    planes: stage (t, column panel, k stage) one contiguous run of the two
+    planes, a core matrix's 8 columns 16 bytes apart, the next core 128
+    bytes on along k (the descriptor's leading byte offset) and KC / 8 cores
+    on along the columns (its stride byte offset); in K5's layout each 16 k
+    reordered so that a thread's A fragment holds 4 consecutive k. Also
+    checks that the planes hold nothing but those elements (their padding
+    is zero)."""
+    planes = tp.pack_reference(gm, grad)
+    nb = tp.NB_GRAD if grad else tp.NB_FWD
+    Tb, n_tiles, k_stages = gm.T if gm.sb[0] else 1, -(-gm.N // nb), -(-gm.k.size // tp.KC)
+    assert planes.numel() == Tb * n_tiles * k_stages * 2 * nb * tp.KC
+    lbo, sbo = 128, tp.KC // 8 * 128  # bytes
+    t = torch.arange(gm.T)[:, None, None] * (gm.sb[0] != 0)
+    n = torch.arange(gm.N)[None, None, :]
+    k = tp.packed_k(torch.arange(gm.k.size), tp.pack_layout(gm, grad))[None, :, None]  # where the kernel finds k
+    stage = ((t * n_tiles + n // nb) * k_stages + k // tp.KC) * (4 * nb * tp.KC)
+    byte = stage + (n % nb) // 8 * sbo + (k % tp.KC) // 8 * lbo + (n % 8) * 16 + (k % 8) * 2
+    hi, lo = planes[byte // 2], planes[(byte + 2 * nb * tp.KC) // 2]
+    read = torch.zeros(planes.numel(), dtype=torch.bool)
+    read[byte.flatten() // 2] = True
+    read[(byte.flatten() + 2 * nb * tp.KC) // 2] = True
+    assert not planes[~read].float().any(), "the packed planes' padding is not zero"
+    return hi.to(torch.float64), lo.to(torch.float64)
 
 
 def _write(vals: torch.Tensor, gm: tp.Gemm) -> torch.Tensor:
-    """A new tensor of gm.out_shape with vals [T, M, N] written through gm.lo."""
+    """A new tensor of gm.out_shape with the existing rows of vals [T, m.size, N] written through gm.so."""
     out = torch.full(gm.out_shape, float("nan"))
-    out.view(-1)[_offsets(gm.lo, gm.T, gm.M, gm.N)] = vals.to(torch.float32)
+    t = torch.arange(gm.T)[:, None, None]
+    m, n = torch.arange(gm.m.size)[None, :, None], torch.arange(gm.N)[None, None, :]
+    mq, mr = m // gm.m.r, m % gm.m.r
+    ok = ((mq < gm.m.q) & (mr < gm.m.g)).expand(gm.T, -1, gm.N)
+    off = (t * gm.so[0] + mq * gm.so[1] + mr * gm.so[2] + n * gm.so[3]).expand(gm.T, -1, gm.N)
+    out.view(-1)[off[ok]] = vals.to(torch.float32)[ok]
     return out
 
 
@@ -147,30 +183,19 @@ def _parts(x: torch.Tensor, n: int):
     return out
 
 
-def _operands(gm: tp.Gemm):
-    return _read(gm.a, gm.la, gm.T, gm.M, gm.K), _read(gm.b, gm.lb, gm.T, gm.K, gm.N)
-
-
 def _kernel_fwd(gm: tp.Gemm) -> torch.Tensor:
-    """K4: ah.bh + al.bh + ah.bl over the Gemm's operands, through its layouts."""
-    A, B = _operands(gm)
-    (ah, al), (bh, bl) = _parts(A, 2), _parts(B, 2)
-    return _write(ah @ bh + al @ bh + ah @ bl, gm)
+    """K4: ah.bh + al.bh + ah.bl, A cut in registers, B's halves from its packed planes."""
+    ah, al = _parts(_read_a(gm), 2)
+    bh, bl = _read_b(gm, False)
+    return _write(al @ bh + ah @ bl + ah @ bh, gm)
 
 
-def _kernel_grad(gm: tp.Gemm, cot_is_a: bool) -> torch.Tensor:
-    """K5: H and L from the three-part cotangent and the other operand's
-    halves, rounded to bf16 and combined."""
-    A, B = _operands(gm)
-    if cot_is_a:
-        g = sum(_parts(A, 3))
-        hi, lo = _parts(B, 2)
-        sums = (g @ hi, g @ lo)
-    else:
-        g = sum(_parts(B, 3))
-        hi, lo = _parts(A, 2)
-        sums = (hi @ g, lo @ g)
-    h, low = (x.to(torch.float32).to(torch.bfloat16).to(torch.float32) for x in sums)
+def _kernel_grad(gm: tp.Gemm) -> torch.Tensor:
+    """K5: H and L from the three-part cotangent (the register operand) and
+    the other operand's halves (the packed planes), rounded to bf16 and combined."""
+    g = sum(_parts(_read_a(gm), 3))
+    hi, lo = _read_b(gm, True)
+    h, low = ((g @ x).to(torch.float32).to(torch.bfloat16).to(torch.float32) for x in (hi, lo))
     pair = (h + low).to(torch.bfloat16).to(torch.float32)
     return _write(h + (pair - h).to(torch.bfloat16).to(torch.float32), gm)
 
@@ -179,25 +204,35 @@ def _einsum_blend(w, a):
     return torch.einsum("vj,bjz->bvz", w, a)
 
 
-KERNEL_CASES = {  # inputs, the Gemm, the contraction, the gradients K5 serves
-    "matmul": (_mm_inputs, tp.matmul_gemm, torch.matmul, (True, True)),
-    "matmul_batched": (_bmm_inputs, tp.matmul_gemm, torch.matmul, (True, True)),
-    # lbs' pose correctives at a small width: [B, (J-1)*9] @ [(J-1)*9, 3V]
-    "correctives": (lambda rng: (rng.normal(size=(5, 99)).astype(np.float32),
-                                 (rng.normal(size=(99, 900)) * 0.01).astype(np.float32)),
-                    tp.matmul_gemm, torch.matmul, (True, True)),
+def _mm(rows_a, cols_b, scale=1.0):
+    return lambda rng: (rng.normal(size=rows_a).astype(np.float32),
+                        (rng.normal(size=cols_b) * scale).astype(np.float32))
+
+
+KERNEL_CASES = {  # inputs, the forward Gemm, the gradients' Gemms, the contraction
+    "matmul": (_mm_inputs, tp.matmul_gemm, tp.matmul_grad_gemms, torch.matmul),
+    "matmul_batched": (_bmm_inputs, tp.matmul_gemm, tp.matmul_grad_gemms, torch.matmul),
+    # lbs' pose correctives at a small width: [B, (J-1)*9] @ [(J-1)*9, 3V]; K = 99 is not a
+    # multiple of a wgmma k step nor of a ring stage, N = 900 not of a column panel
+    "correctives": (_mm((5, 99), (99, 900), 0.01), tp.matmul_gemm, tp.matmul_grad_gemms, torch.matmul),
+    # rows past one 64-row tile of a warpgroup, and past the two of a block
+    "correctives_b130": (_mm((130, 70), (70, 200), 0.01), tp.matmul_gemm, tp.matmul_grad_gemms, torch.matmul),
     # a transposed lhs: its rows, not k, are contiguous
     "strided_lhs": (lambda rng: (rng.normal(size=(70, 33)).astype(np.float32).T,
                                  rng.normal(size=(70, 41)).astype(np.float32)),
-                    tp.matmul_gemm, torch.matmul, (True, True)),
-    # the blend: the weights are shared by the bodies, K5 serves only A12's gradient
-    "blend": (_blend_inputs, tp.blend_gemm, _einsum_blend, (False, True)),
+                    tp.matmul_gemm, tp.matmul_grad_gemms, torch.matmul),
+    # a 2-D lhs under a batched rhs: its gradient contracts over (t, n), grouped
+    "shared_lhs": (_mm((40, 70), (3, 70, 50)), tp.matmul_gemm, tp.matmul_grad_gemms, torch.matmul),
+    # the blend: rows (b, z), 16 laid out a body; the weights' gradient contracts over (b, z)
+    "blend": (_blend_inputs, tp.blend_gemm, tp.blend_grad_gemms, _einsum_blend),
+    "blend_b1": (lambda rng: (rng.random((130, 55)).astype(np.float32), rng.normal(size=(1, 55, 12)).astype(np.float32)),
+                 tp.blend_gemm, tp.blend_grad_gemms, _einsum_blend),
 }
 
 
 @pytest.mark.parametrize("name", list(KERNEL_CASES))
 def test_kernel_layouts_and_arithmetic_match_the_twins(name):
-    make, gemm, fn, served = KERNEL_CASES[name]
+    make, gemm, grad_gemms, fn = KERNEL_CASES[name]
     rng = np.random.default_rng(2)
     a, b = (torch.from_numpy(x) for x in make(rng))
     gm = gemm(a, b)
@@ -208,36 +243,94 @@ def test_kernel_layouts_and_arithmetic_match_the_twins(name):
 
     g = torch.from_numpy(rng.normal(size=tuple(want.shape)).astype(np.float32))
     twin = tp.split_product_grad_reference(a, b, g, fn)
-    subs = tp.grad_gemms(gm, g, (tuple(a.shape), tuple(b.shape)))
-    assert (subs[0] is None) == (name == "blend")  # the blend's columns are grouped: no product for w's gradient
-    for serve, sub, cot, op, ref, what in zip(served, subs, (True, False), (a, b), twin, "ab"):
-        if serve:
-            # float64 sums against the twin's f32 ones: a cotangent block can
-            # round the other way, and where a block is small from
-            # cancellation, or H and L nearly cancel, one bf16 rounding there
-            # is more than one ulp of the element: the bound is one ulp of the
-            # operand's largest gradient (the card's check in chip_smoke.py)
-            got = _kernel_grad(sub, cot)
-            assert got.shape == op.shape
-            _bits_close(got.numpy(), ref.numpy(), f"{name} grad {what}", ref.abs().max().item())
+    subs = grad_gemms(a, b, g, (True, True))
+    for sub, op, ref, what in zip(subs, (a, b), twin, "ab"):
+        # float64 sums against the twin's f32 ones: a cotangent block can
+        # round the other way, and where a block is small from
+        # cancellation, or H and L nearly cancel, one bf16 rounding there
+        # is more than one ulp of the element: the bound is one ulp of the
+        # operand's largest gradient (the card's check in chip_smoke.py)
+        got = _kernel_grad(sub)
+        assert got.shape == op.shape
+        _bits_close(got.numpy(), ref.numpy(), f"{name} grad {what}", ref.abs().max().item())
 
 
 def test_the_card_refuses_what_k5_does_not_take():
-    """The blend's weights are shared by every body: their gradient needs a
-    sum over the bodies that K5 does not take, so the card raises for it
-    (no path asks for it); a 2-D lhs under a batched rhs likewise."""
-    gm = tp.blend_gemm(torch.ones(7, 5), torch.ones(3, 5, 12))
-    assert gm.shared == (True, False) and (gm.T, gm.M, gm.N, gm.K) == (1, 7, 36, 5)
-    with pytest.raises(NotImplementedError, match="shared across the batch"):
-        tp._card_backward(torch.ones(7, 5), torch.ones(3, 5, 12), torch.ones(3, 7, 12), tp.blend_gemm,
-                          (True, False))
+    """The operands every product of a batch shares: the blend's weights and
+    a 2-D lhs under a batched rhs. Their gradients contract over a grouped
+    axis, the batch and the rows of one product, so that the sum over the
+    batch comes before the bf16 rounding; emulated as K5 reads them, they
+    match the twin. A broadcast of a batched operand is still refused."""
+    rng = np.random.default_rng(6)
+    w, a12 = torch.from_numpy(rng.random((7, 5)).astype(np.float32)), torch.ones(3, 5, 12)
+    gm = tp.blend_gemm(w, a12)
+    assert gm.m == tp.Axis(3, 16, 12) and (gm.T, gm.N, gm.k) == (1, 7, tp.Axis(1, 16, 5))
+    gw, _ = tp.blend_grad_gemms(w, a12, torch.ones(3, 7, 12), (True, False))
+    assert gw.k == tp.Axis(3, 16, 12) and gw.out_shape == (7, 5) and gw.sa == (0, 0, 12, 84, 1)
+    cases = ((tp.blend_grad_gemms, _einsum_blend, (7, 5), (3, 5, 12)),
+             (tp.matmul_grad_gemms, torch.matmul, (7, 5), (3, 5, 2)))
+    for grad_gemms, fn, sa, sb in cases:
+        a, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in (sa, sb))
+        g = torch.from_numpy(rng.normal(size=tuple(fn(a, b).shape)).astype(np.float32))
+        sub, _ = grad_gemms(a, b, g, (True, False))
+        assert sub.T == 1 and sub.k.q == 3  # one product, the batch inside the contraction
+        ref = tp.split_product_grad_reference(a, b, g, fn, (True, False))[0]
+        _bits_close(_kernel_grad(sub).numpy(), ref.numpy(), "shared operand", ref.abs().max().item())
     gm = tp.matmul_gemm(torch.ones(7, 5), torch.ones(3, 5, 2))
-    assert gm.la.st == 0 and gm.lb.st == 10 and gm.out_shape == (3, 7, 2) and gm.shared == (True, False)
-    with pytest.raises(NotImplementedError, match="shared across the batch"):
-        tp._card_backward(torch.ones(7, 5), torch.ones(3, 5, 2), torch.ones(3, 7, 2), tp.matmul_gemm,
-                          (True, True))
+    assert gm.sa[0] == 0 and gm.sb[0] == 10 and gm.out_shape == (3, 7, 2)
     with pytest.raises(NotImplementedError, match="broadcasts only a 2-D operand"):
         tp.matmul_gemm(torch.ones(2, 1, 7, 5), torch.ones(1, 3, 5, 2))
+
+
+def test_pack_reference_places_and_pads_every_element():
+    """The packed planes of a B with a grouped contraction (the weights'
+    gradient's A12, B = 3 bodies of Z = 12 laid out as 16) and of one whose
+    k and columns end mid-stage and mid-panel: each element's hi and lo
+    halves at the kernel's address, psi_tpu's cut, the rest zero."""
+    rng = np.random.default_rng(7)
+    w, a12 = torch.from_numpy(rng.random((70, 55)).astype(np.float32)), \
+        torch.from_numpy(rng.normal(size=(3, 55, 12)).astype(np.float32))
+    for gm, grad in ((tp.blend_grad_gemms(w, a12, torch.ones(3, 70, 12), (True, False))[0], True),
+                     (tp.blend_gemm(w, a12), False), (tp.matmul_gemm(torch.ones(2, 70), w[:, :33]), False)):
+        hi, lo = _read_b(gm, grad)
+        x = _read_b_f32(gm)
+        np.testing.assert_array_equal(hi.float().numpy(), x.to(torch.bfloat16).float().numpy())
+        np.testing.assert_array_equal(lo.float().numpy(),
+                                      (x - x.to(torch.bfloat16).float()).to(torch.bfloat16).float().numpy())
+
+
+def _read_b_f32(gm: tp.Gemm) -> torch.Tensor:
+    """B [T, k.size, N] in f32 straight from its source through gm.sb, zero where k does not exist."""
+    t = torch.arange(gm.T)[:, None, None]
+    k, n = torch.arange(gm.k.size)[None, :, None], torch.arange(gm.N)[None, None, :]
+    kq, kr = k // gm.k.r, k % gm.k.r
+    ok = ((kq < gm.k.q) & (kr < gm.k.g)).expand(gm.T, -1, gm.N)
+    off = (t * gm.sb[0] + kq * gm.sb[1] + kr * gm.sb[2] + n * gm.sb[3]) * ok
+    flat = torch.as_strided(gm.b, (int(off.max()) + 1,), (1,))
+    return torch.where(ok, flat[off], 0.0)
+
+
+def test_pack_cache_keeps_a_constant_and_repacks_after_an_in_place_change():
+    """The cache returns the same planes while the source is unchanged,
+    repacks after an in-place change (its _version), keeps one entry a
+    layout, and lets the entry go with the tensor."""
+    cache = tp.PackCache()
+    src = torch.from_numpy(np.random.default_rng(8).normal(size=(40, 30)).astype(np.float32))
+    builds = []
+
+    def build():
+        builds.append(1)
+        return src.to(torch.bfloat16).clone()
+
+    first = cache.get(src, ("k4",), build)
+    assert cache.get(src, ("k4",), build) is first and len(builds) == 1
+    cache.get(src, ("k5",), build)
+    assert len(builds) == 2 and cache.nbytes() == 2 * src.numel() * 2
+    src.mul_(2.0)
+    again = cache.get(src, ("k4",), build)
+    assert again is not first and len(builds) == 3 and torch.equal(again, src.to(torch.bfloat16))
+    del src, first, again
+    assert cache.nbytes() == 0
 
 
 # ---- lbs at 'high' and at exact=True
