@@ -1,0 +1,8 @@
+"""Share of the traced window in which the device idled while the host was
+in the fit's collision term (``psi.fit.collision``: the SDF gather)."""
+
+from benchmark.spans import GENFIT, idle_pct_in
+
+
+def read(ctx):
+    return idle_pct_in(ctx, GENFIT, "psi.fit.collision")

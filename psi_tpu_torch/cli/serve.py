@@ -10,7 +10,8 @@ Requests are micro-batched: lines arriving while a program call is in
 flight (or within the linger window) coalesce into ONE program call
 (ServingQueue). ``batch_size`` in the response says how many requests
 shared it. The line ``stats`` emits queue statistics including
-p50/p99 end-to-end latency; a stats record is also emitted at shutdown.
+p50/p99 end-to-end latency and queue wait and the median program call;
+a stats record is also emitted at shutdown.
 
 STREAMING: a request whose n_samples exceeds the population is
 served as multiple chunk sub-requests; one response record per chunk is

@@ -35,6 +35,11 @@ Three FitConfig fields, all off by default, change how the same fit runs:
   (``torch.utils.checkpoint``) instead of keeping its residuals: one more
   K1 launch per pass on the fused tier.
 
+Under a profiler (``utils.profiling.span``) each iteration opens
+``psi.fit.pass.<kind>`` and, inside it for every chunk, ``psi.fit.decode``,
+``psi.fit.contact``, ``psi.fit.collision``, ``psi.fit.backward`` and
+``psi.fit.adam``; the sampler in front of a fit opens ``psi.sample``.
+
 The drivers: ``fit_bodies`` (one call), ``make_generate_fit_step`` and
 ``make_generate_fit_rows`` (sampler in front of the fit, one snapshot or
 one per row), ``make_fit_step_carry_opt_state`` (the reference's Adam
@@ -82,6 +87,7 @@ from psi_tpu_torch.parallel.distributed import gather_rows
 from psi_tpu_torch.train.objective import SceneAssets
 from psi_tpu_torch.utils.config import FitConfig
 from psi_tpu_torch.utils.precision import strict_f32
+from psi_tpu_torch.utils.profiling import span
 
 LBS_PRECISIONS = ("high", "fast", "fused")
 
@@ -139,54 +145,57 @@ def _per_body_losses(
                 precision=cfg.lbs_precision, fused_bundle=fused_bundle,
             )[0]
 
-    if cfg.remat_decode:
-        # keep xh only; the backward pass runs the decode (K1 on the fused tier) again
-        verts = checkpoint(decode, xh, use_reentrant=False, preserve_rng_state=False)
-    else:
-        verts = decode(xh)
-    contact_verts = verts[:, : sub["n_contact"], :] if use_sub else verts[:, assets.contact_vids, :]
-
-    if sel is not None and not fresh_nn:
-        y_nn = sel[0]
-        d1 = torch.sum((contact_verts - y_nn) ** 2, dim=-1)  # frozen correspondence
-    else:
-        scene_pts = assets.scene_verts[scene_idx]
-        ks = cfg.prune_scene_points
-        if ks and ks < scene_pts.shape[1]:
-            # keep the ~K scene points nearest each body's contact centroid
-            scene_pts = select_near_tiles(scene_pts, torch.mean(contact_verts, dim=1), ks)
-        if cfg.refresh_every > 1:
-            d1, y_nn = chamfer_one_sided_nn(contact_verts, scene_pts)
+    with span("psi.fit.decode"):
+        if cfg.remat_decode:
+            # keep xh only; the backward pass runs the decode (K1 on the fused tier) again
+            verts = checkpoint(decode, xh, use_reentrant=False, preserve_rng_state=False)
         else:
-            d1 = chamfer_one_sided(contact_verts, scene_pts)  # [N, C]
-            y_nn = None
-    s = torch.sqrt(d1 + 1e-4)
-    loss_contact = cfg.weight_contact * torch.mean(s / (s + cfg.contact_denom_offset), dim=1)
+            verts = decode(xh)
 
-    dims = tuple(assets.sdf_packed.shape[1:4])
-    if sel is not None and not fresh_sdf:
-        sdf_cache = sel[1]
-        coll_verts = verts[:, sub["n_contact"]:, :] if use_sub else verts
-        body_sdf = sdf_trilinear_from_cache(
-            sdf_cache, scene_idx, coll_verts, assets.grid_mins, assets.grid_maxs, dims
-        )
-    elif cfg.refresh_every > 1:
-        body_sdf, (corners, base) = sdf_trilinear_packed_cached(
-            assets.sdf_packed, scene_idx, verts, assets.grid_mins, assets.grid_maxs
-        )
-        if sub is not None:  # carry only the rows the subset's cheap passes read
-            corners, base = corners[:, sub["coll_rows"]], base[:, sub["coll_rows"]]
-        sdf_cache = (corners.detach(), base.detach())
-    else:
-        body_sdf = sdf_trilinear_packed(
-            assets.sdf_packed, scene_idx, verts, assets.grid_mins, assets.grid_maxs
-        )
-        sdf_cache = None
-    # min(sdf, 0) with jnp.minimum's derivative, 0.5 at sdf == 0 (torch.clamp
-    # passes all of the gradient there)
-    neg = torch.minimum(body_sdf, body_sdf.new_zeros(()))
-    cnt = torch.clamp(torch.sum(body_sdf < 0, dim=1), min=1).to(xhr.dtype)
-    loss_collision = cfg.weight_collision * (-torch.sum(neg, dim=1) / cnt)
+    with span("psi.fit.contact"):
+        contact_verts = verts[:, : sub["n_contact"], :] if use_sub else verts[:, assets.contact_vids, :]
+        if sel is not None and not fresh_nn:
+            y_nn = sel[0]
+            d1 = torch.sum((contact_verts - y_nn) ** 2, dim=-1)  # frozen correspondence
+        else:
+            scene_pts = assets.scene_verts[scene_idx]
+            ks = cfg.prune_scene_points
+            if ks and ks < scene_pts.shape[1]:
+                # keep the ~K scene points nearest each body's contact centroid
+                scene_pts = select_near_tiles(scene_pts, torch.mean(contact_verts, dim=1), ks)
+            if cfg.refresh_every > 1:
+                d1, y_nn = chamfer_one_sided_nn(contact_verts, scene_pts)
+            else:
+                d1 = chamfer_one_sided(contact_verts, scene_pts)  # [N, C]
+                y_nn = None
+        s = torch.sqrt(d1 + 1e-4)
+        loss_contact = cfg.weight_contact * torch.mean(s / (s + cfg.contact_denom_offset), dim=1)
+
+    with span("psi.fit.collision"):
+        dims = tuple(assets.sdf_packed.shape[1:4])
+        if sel is not None and not fresh_sdf:
+            sdf_cache = sel[1]
+            coll_verts = verts[:, sub["n_contact"]:, :] if use_sub else verts
+            body_sdf = sdf_trilinear_from_cache(
+                sdf_cache, scene_idx, coll_verts, assets.grid_mins, assets.grid_maxs, dims
+            )
+        elif cfg.refresh_every > 1:
+            body_sdf, (corners, base) = sdf_trilinear_packed_cached(
+                assets.sdf_packed, scene_idx, verts, assets.grid_mins, assets.grid_maxs
+            )
+            if sub is not None:  # carry only the rows the subset's cheap passes read
+                corners, base = corners[:, sub["coll_rows"]], base[:, sub["coll_rows"]]
+            sdf_cache = (corners.detach(), base.detach())
+        else:
+            body_sdf = sdf_trilinear_packed(
+                assets.sdf_packed, scene_idx, verts, assets.grid_mins, assets.grid_maxs
+            )
+            sdf_cache = None
+        # min(sdf, 0) with jnp.minimum's derivative, 0.5 at sdf == 0 (torch.clamp
+        # passes all of the gradient there)
+        neg = torch.minimum(body_sdf, body_sdf.new_zeros(()))
+        cnt = torch.clamp(torch.sum(body_sdf < 0, dim=1), min=1).to(xhr.dtype)
+        loss_collision = cfg.weight_collision * (-torch.sum(neg, dim=1) / cnt)
 
     per_body = loss_rec + loss_vposer + loss_contact + loss_collision
     metrics = {
@@ -344,31 +353,34 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> Callab
             chunks = [_Chunk(n * ci // C, n * (ci + 1) // C, xhr_init, cfg.init_lr_h) for ci in range(C)]
             hist = []
             for it, kind in enumerate(kinds):
-                if it == subset_at:
-                    x_now = torch.cat([c.xhr for c in chunks]) if C > 1 else chunks[0].xhr
-                    if mesh is not None:  # the scoring rows may lie on other ranks
-                        x_now = gather_rows(x_now, mesh)
-                    sub = _build_subset(assets, cfg, convert_to_3D_rot(x_now), cam_ext, scene_idx, bundle)
+                with span(f"psi.fit.pass.{kind}"):
+                    if it == subset_at:
+                        x_now = torch.cat([c.xhr for c in chunks]) if C > 1 else chunks[0].xhr
+                        if mesh is not None:  # the scoring rows may lie on other ranks
+                            x_now = gather_rows(x_now, mesh)
+                        sub = _build_subset(assets, cfg, convert_to_3D_rot(x_now), cam_ext, scene_idx, bundle)
+                        for c in chunks:
+                            if c.sel is not None:  # the warm-up carried every vertex's cells
+                                y_nn, (corners, base) = c.sel
+                                c.sel = (y_nn, (corners[:, sub["coll_rows"]], base[:, sub["coll_rows"]]))
+                    totals = []
                     for c in chunks:
-                        if c.sel is not None:  # the warm-up carried every vertex's cells
-                            y_nn, (corners, base) = c.sel
-                            c.sel = (y_nn, (corners[:, sub["coll_rows"]], base[:, sub["coll_rows"]]))
-                totals = []
-                for c in chunks:
-                    x = c.xhr.detach().requires_grad_(True)
-                    with torch.enable_grad():
-                        if kind == "full":
-                            loss, (metrics, new_sel) = loss_fn(c.lo, c.hi, x)
-                        else:
-                            loss, (metrics, new_sel) = loss_fn(
-                                c.lo, c.hi, x, c.sel, fresh_nn=kind == "nn_only", fresh_sdf=False
-                            )
-                        (g,) = torch.autograd.grad(loss, x)
-                    c.xhr = c.adam.step(c.xhr, g)
-                    if kind != "cheap":
-                        c.sel = new_sel
-                    totals.append(metrics["total"].detach())
-                hist.append(totals[0] if C == 1 else torch.cat(totals))
+                        x = c.xhr.detach().requires_grad_(True)
+                        with torch.enable_grad():
+                            if kind == "full":
+                                loss, (metrics, new_sel) = loss_fn(c.lo, c.hi, x)
+                            else:
+                                loss, (metrics, new_sel) = loss_fn(
+                                    c.lo, c.hi, x, c.sel, fresh_nn=kind == "nn_only", fresh_sdf=False
+                                )
+                            with span("psi.fit.backward"):
+                                (g,) = torch.autograd.grad(loss, x)
+                        with span("psi.fit.adam"):
+                            c.xhr = c.adam.step(c.xhr, g)
+                        if kind != "cheap":
+                            c.sel = new_sel
+                        totals.append(metrics["total"].detach())
+                    hist.append(totals[0] if C == 1 else torch.cat(totals))
             loss_hist = torch.stack(hist)
             xhr = chunks[0].xhr if C == 1 else torch.cat([c.xhr for c in chunks])
             x72 = convert_to_3D_rot(xhr)

@@ -38,6 +38,7 @@ from psi_tpu_torch.geometry.bodyvec import body_params_encapsulate_list, convert
 from psi_tpu_torch.geometry.camera import recover_global_T
 from psi_tpu_torch.models.cvae_s1 import HumanCVAES1
 from psi_tpu_torch.models.cvae_s2 import HumanCVAES2
+from psi_tpu_torch.utils.profiling import span
 
 Model = Union[HumanCVAES1, HumanCVAES2]
 Eps = Union[None, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -75,7 +76,7 @@ def generate_bodies(
 ) -> torch.Tensor:
     """[n_samples, 72] metric body vectors for one snapshot. The scene
     trunk (each of S2's two) runs once, not n_samples times."""
-    with eval_mode(model):
+    with eval_mode(model), span("psi.sample"):
         xhnr = model.sample_n(xs, n_samples, **_noise(model, generator, eps))
         xhn = convert_to_3D_rot(xhnr)
         cam_int_n = cam_int.reshape(1, 3, 3).expand(n_samples, 3, 3)
@@ -97,7 +98,7 @@ def generate_bodies_rows(
     features are gathered per row."""
     req_idx = req_idx.to(torch.int64)
     noise = _noise(model, generator, eps)
-    with eval_mode(model):
+    with eval_mode(model), span("psi.sample"):
         if isinstance(model, HumanCVAES2):
             z_g, z_l = model.encode_scenes(xs_stack)
             xhnr = model.sample_with_feats(z_g[req_idx], z_l[req_idx], **noise)

@@ -58,8 +58,14 @@ def floor_placement(x72, grid_min, grid_max):
 
 
 def device_events(prof) -> List:
-    """The profile's device-side entries (kernels and copies), averaged by name."""
-    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    """The profile's device-side entries (kernels and copies), averaged by name.
+    A span opened on the host (``record_function``) is mirrored onto the
+    device's timeline under its own name around its kernels: those mirrors are
+    left out, or the kernels count twice."""
+    averages = prof.key_averages()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    spans = {e.key for e in averages if e.device_type == cpu and e.is_user_annotation}
+    return [e for e in averages if e.device_type == cuda and not (e.key in spans or e.is_user_annotation)]
 
 
 def _device_us(e) -> float:

@@ -296,6 +296,19 @@ class GenerationEngine:
 
 _STOP = object()
 
+# the percentiles ``stats()`` reports of each series a queue records
+_PERCENTILES = {"latency": (50, 99), "wait": (50, 99), "call": (50,)}
+
+
+def _percentiles(samples: Dict[str, Sequence[float]]) -> Dict[str, float]:
+    """``<series>_p<q>_s`` for each series that holds a sample."""
+    out = {}
+    for name, qs in _PERCENTILES.items():
+        if len(samples[name]):
+            arr = np.asarray(samples[name], np.float64)
+            out.update({f"{name}_p{q}_s": float(np.percentile(arr, q)) for q in qs})
+    return out
+
 
 @dataclasses.dataclass
 class _Queued:
@@ -314,8 +327,10 @@ class ServingQueue:
     queue into groups (same fit flag, total rows <= population, at most
     ``engine.max_requests`` requests), lingering ``linger_s`` after the
     first request of a group to let a burst accumulate, then runs each
-    group as one ``generate_coalesced`` program call. Latency is
-    end-to-end (submit -> result ready) and tracked for p50/p99.
+    group as one ``generate_coalesced`` program call. Each request's
+    latency (submit -> result ready) and queue wait (submit -> its group's
+    program call starts), and each call's seconds, are tracked for
+    ``stats()``.
     """
 
     def __init__(self, engine: GenerationEngine, linger_s: float = 0.005):
@@ -324,9 +339,10 @@ class ServingQueue:
         self._q: "queue.Queue[Any]" = queue.Queue()
         self._carry: Optional[Any] = None
         self._stats_lock = threading.Lock()
-        # bounded window: a long-running server must not leak one float
-        # per request forever (p50/p99 over the last 100k is plenty)
-        self._latencies: "collections.deque[float]" = collections.deque(maxlen=100_000)
+        # bounded windows: a long-running server must not leak one float
+        # per request forever (percentiles over the last 100k are plenty)
+        self._samples: Dict[str, "collections.deque[float]"] = {
+            name: collections.deque(maxlen=100_000) for name in _PERCENTILES}
         self._requests = 0
         self._batches = 0
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -366,19 +382,20 @@ class ServingQueue:
         self._worker.join()
 
     def stats(self) -> Dict[str, Any]:
-        with self._stats_lock:
-            lat = np.asarray(self._latencies, np.float64)
+        """Requests and program calls served; the p50 and p99 of the
+        requests' latency and queue wait and the p50 of the calls' seconds,
+        once there are any."""
+        with self._stats_lock:  # counts and series from the same moment
             out = {"requests": self._requests, "batches": self._batches}
-        if lat.size:
-            out["latency_p50_s"] = float(np.percentile(lat, 50))
-            out["latency_p99_s"] = float(np.percentile(lat, 99))
-        return out
+            samples = {name: list(d) for name, d in self._samples.items()}
+        return {**out, **_percentiles(samples)}
 
-    def latencies_snapshot(self) -> List[float]:
-        """Copy of the per-request end-to-end latencies (for aggregation
-        by a router without touching queue internals)."""
+    def samples(self) -> Dict[str, List[float]]:
+        """Copies of the recorded series: each request's end-to-end latency
+        and queue wait, each program call's seconds (for aggregation by a
+        router without touching queue internals)."""
         with self._stats_lock:
-            return list(self._latencies)
+            return {name: list(d) for name, d in self._samples.items()}
 
     def _compatible(self, first, nxt, rows) -> bool:
         """May nxt share first's program call? Same fit flag, room in the
@@ -420,6 +437,7 @@ class ServingQueue:
             group = self._next_group()
             if group is None:
                 return
+            start_t = time.time()
             try:
                 results = self.engine.generate_coalesced([g.req for g in group], fit=group[0].fit)
             except Exception as e:  # surface failures to every caller in the group
@@ -430,8 +448,10 @@ class ServingQueue:
             with self._stats_lock:
                 self._batches += 1
                 self._requests += len(group)
+                self._samples["call"].append(done_t - start_t)
                 for g in group:
-                    self._latencies.append(done_t - g.submit_t)
+                    self._samples["latency"].append(done_t - g.submit_t)
+                    self._samples["wait"].append(start_t - g.submit_t)
             for g, r in zip(group, results):
                 r.latency_s = done_t - g.submit_t  # end-to-end, incl. queue wait
                 g.future.set_result(r)
@@ -475,19 +495,16 @@ class ServingRouter:
         """Aggregate stats (same schema as ServingQueue.stats) plus a
         per-model breakdown under 'models'."""
         per = {name: q.stats() for name, q in self.queues.items()}
-        lat = []
+        merged: Dict[str, List[float]] = {name: [] for name in _PERCENTILES}
         for q in self.queues.values():
-            lat.extend(q.latencies_snapshot())
+            for name, values in q.samples().items():
+                merged[name].extend(values)
         out: Dict[str, Any] = {
             "requests": sum(p["requests"] for p in per.values()),
             "batches": sum(p["batches"] for p in per.values()),
             "models": per,
         }
-        if lat:
-            arr = np.asarray(lat, np.float64)
-            out["latency_p50_s"] = float(np.percentile(arr, 50))
-            out["latency_p99_s"] = float(np.percentile(arr, 99))
-        return out
+        return {**out, **_percentiles(merged)}
 
     def stop(self):
         for q in self.queues.values():

@@ -8,7 +8,10 @@ model and the optimizer are stateful torch objects, so a step updates its
 ``TrainState`` in place and returns it with the metrics. One step is: zero
 the gradients, ``cvae_loss``, backward, the optional global-norm clip,
 Adam; all of it inside ``strict_f32`` (the backward too). On the card the
-objective launches kernel K3 once per step.
+objective launches kernel K3 once per step. Under a profiler
+(``utils.profiling.span``) a step opens ``psi.train.forward``,
+``psi.train.backward`` and ``psi.train.optimizer``, and staging a chunk
+``psi.train.stage``.
 
 Data-parallel training (``TrainOP(mesh=)``, ``parallel/mesh.py``): every rank
 reads the same global batch and keeps its rows; the objective returns the
@@ -43,6 +46,7 @@ from psi_tpu_torch.train.objective import SceneAssets, cvae_loss
 from psi_tpu_torch.utils.config import LossConfig, TrainConfig
 from psi_tpu_torch.utils.init import seeded_init_
 from psi_tpu_torch.utils.precision import strict_f32
+from psi_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -128,25 +132,28 @@ def make_train_step(
                 gen = None
             eps = tuple(e[lo:hi] for e in eps) if isinstance(eps, tuple) else eps[lo:hi]
         with strict_f32():
-            state.optimizer.zero_grad(set_to_none=True)
-            total, metrics, _ = cvae_loss(
-                state.model, batch, assets, fca, f_scene, loss_cfg, model_type=model_type, train=True,
-                generator=gen, eps=eps, mesh=mesh,
-            )
-            # only the model's parameters: the assets' modules take no gradient
-            total.backward(inputs=params)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-            if mesh is not None:  # the shares' sums: the global gradient and metrics
-                grads = [p.grad for p in params if p.grad is not None]  # the same set on every rank
-                flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]), mesh)
-                for g, f in zip(grads, flat.split([g.numel() for g in grads])):
-                    g.copy_(f.view_as(g))
-                names = list(metrics)
-                summed = all_reduce_sum_(torch.stack([metrics[k] for k in names]), mesh)
-                metrics = dict(zip(names, summed.unbind()))
-            if grad_clip_norm is not None:
-                clip_by_global_norm_([p.grad for p in params], grad_clip_norm)
-            state.optimizer.step()
+            with span("psi.train.forward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                total, metrics, _ = cvae_loss(
+                    state.model, batch, assets, fca, f_scene, loss_cfg, model_type=model_type, train=True,
+                    generator=gen, eps=eps, mesh=mesh,
+                )
+            with span("psi.train.backward"):
+                # only the model's parameters: the assets' modules take no gradient
+                total.backward(inputs=params)
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                if mesh is not None:  # the shares' sums: the global gradient and metrics
+                    grads = [p.grad for p in params if p.grad is not None]  # the same set on every rank
+                    flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]), mesh)
+                    for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+                        g.copy_(f.view_as(g))
+                    names = list(metrics)
+                    summed = all_reduce_sum_(torch.stack([metrics[k] for k in names]), mesh)
+                    metrics = dict(zip(names, summed.unbind()))
+            with span("psi.train.optimizer"):
+                if grad_clip_norm is not None:
+                    clip_by_global_norm_([p.grad for p in params], grad_clip_norm)
+                state.optimizer.step()
         state.step += 1
         return state, metrics
 
@@ -188,13 +195,14 @@ def _stage_chunk(group: List[Dict[str, np.ndarray]], stage_bf16: bool, device) -
     bytes; the objective upcasts on entry)."""
     device = torch.device(device)
     out = {}
-    for k in group[0]:
-        t = torch.from_numpy(np.stack([g[k] for g in group]))
-        if k == "xs" and stage_bf16:
-            t = t.to(torch.bfloat16)
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
+    with span("psi.train.stage"):
+        for k in group[0]:
+            t = torch.from_numpy(np.stack([g[k] for g in group]))
+            if k == "xs" and stage_bf16:
+                t = t.to(torch.bfloat16)
+            if device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=True)
     return out
 
 

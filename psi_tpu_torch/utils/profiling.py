@@ -1,23 +1,24 @@
-"""Tracing and throughput instrumentation (port of ``psi_tpu.utils.profiling``).
+"""Tracing (port of ``psi_tpu.utils.profiling``).
 
 * ``trace(logdir)`` — a ``torch.profiler`` capture of the enclosed block
   (host and, when a card is present, CUDA activity), written to
   ``logdir`` as a Chrome trace viewable in Perfetto or chrome://tracing;
-* ``StepTimer`` — rolling step-time / items-per-second counters for
-  train/generation/fitting loops (copied);
-* ``annotate(name)`` — a named region in that trace
-  (``torch.profiler.record_function``).
+* ``span(name)`` — a named region of the program in that trace
+  (``torch.profiler.record_function``) while a profiler runs, and nothing
+  while none does. The program's spans are named ``psi.*``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import deque
-from typing import Dict, Iterator, Optional
+from typing import Iterator
 
 import torch
+
+# a span while no profiler runs: entering a bare record_function would cost
+# ~13 us on the host, this costs well under one
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -36,40 +37,8 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named region in the profiler trace."""
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Rolling throughput meter: step time and items/sec."""
-
-    def __init__(self, window: int = 50):
-        self.times: deque = deque(maxlen=window)
-        self.items: deque = deque(maxlen=window)
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, n_items: int = 1) -> float:
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        self.items.append(n_items)
-        return dt
-
-    @contextlib.contextmanager
-    def step(self, n_items: int = 1) -> Iterator[None]:
-        self.start()
-        yield
-        self.stop(n_items)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {"mean_step_s": 0.0, "items_per_sec": 0.0, "steps": 0}
-        total_t = sum(self.times)
-        return {
-            "mean_step_s": total_t / len(self.times),
-            "items_per_sec": sum(self.items) / total_t if total_t > 0 else 0.0,
-            "steps": len(self.times),
-        }
+def span(name: str):
+    """Named region in the profiler trace, recorded only while a profiler runs."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

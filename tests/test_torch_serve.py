@@ -455,7 +455,37 @@ def test_a_failed_program_fails_its_group_and_the_worker_lives_on():
     assert r.bodies.shape == (2, 72) and stats["requests"] == 1 and stats["batches"] == 1
     # latency_s is end to end (submit -> ready: the linger and the program), not the engine's 0.001
     assert 0.2 <= r.latency_s <= waited + 0.01
-    assert q.latencies_snapshot() == [r.latency_s] and q._latencies.maxlen == 100_000
+    assert q.samples()["latency"] == [r.latency_s] and q._samples["latency"].maxlen == 100_000
+
+
+def test_queue_records_each_request_s_wait_and_each_call_s_seconds():
+    """A request's queue wait runs from its submit to its group's program
+    call, and its latency is that wait plus the call; a router merges its
+    queues' series."""
+    eng = _FakeEngine()
+    q = ServingQueue(eng, linger_s=0.0)
+    futs = [q.submit(_snapshot(), n_samples=None) for _ in range(3)]  # a full population each: three calls in turn
+    res = [f.result(timeout=30) for f in futs]
+    q.stop()
+    got = q.samples()
+    assert len(got["call"]) == 3 and min(got["call"]) >= 0.05  # the engine sleeps 0.05 s a call
+    assert [r.latency_s for r in res] == got["latency"]
+    for lat, wait, call in zip(got["latency"], got["wait"], got["call"]):
+        assert lat == pytest.approx(wait + call, abs=1e-9) and wait >= 0
+    # the second request waits out the first call, the third both
+    assert got["wait"][1] >= 0.05 and got["wait"][2] >= 0.10
+    stats = q.stats()
+    assert stats["call_p50_s"] == sorted(got["call"])[1] and stats["wait_p50_s"] == got["wait"][1]
+    assert got["wait"][1] <= stats["wait_p99_s"] <= got["wait"][2]
+    assert stats["wait_p99_s"] <= stats["latency_p99_s"]
+
+    router = ServingRouter({"a": _FakeEngine(), "b": _FakeEngine()}, linger_s=0.0)
+    for name in ("a", "b"):
+        router.submit(_snapshot(), n_samples=2, model=name).result(timeout=30)
+    router.stop()
+    stats = router.stats()
+    assert stats["batches"] == 2 and stats["call_p50_s"] >= 0.05 and stats["wait_p99_s"] >= 0
+    assert {"wait_p50_s", "wait_p99_s", "call_p50_s"} <= set(stats["models"]["a"])
 
 
 def test_a_malformed_request_never_reaches_the_worker():
