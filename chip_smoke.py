@@ -41,7 +41,9 @@ verts), with random weights made from a seed. Phases, one line each:
               registers of each product kernel instance, 0 spill bytes
   6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6 (K4/K5 0),
               finite bodies, mean loss falling, peak device memory; then
-              bodies/s
+              bodies/s; then one more call, a replay of the fit's CUDA graph
+              (the main path from a key's third call on), with the same
+              launch counts asserted and the replay seen in graph_stats()
   7. cross    the same slice at N=16 on the CPU (twins) and on the card
               (kernels) from identical inputs: bounded drift
 
@@ -85,7 +87,8 @@ and then the training path and the Stage-2 sampler:
               step, and K3 at (32, 1455, 20000): on the device, beside its
               bound, its twin (equal indices) and torch.cdist + argmin.
  12. s2       one N=256 production generate+fit with HumanCVAES2 as the
-              sampler: launch counts 20/20/6, finite bodies, falling loss
+              sampler: launch counts 20/20/6, finite bodies, falling loss;
+              two calls more, the second a replay with 20/20/6 asserted
 
  and then the file-driven path and the fit's off-by-default knobs:
 
@@ -229,8 +232,11 @@ and then the paths that had not run on the card before:
               FitConfig.exact() card vs CPU (iteration-0 losses within 1e-4,
               which TF32 would break; the fitted x72 within 2x the fit's own
               sensitivity, measured on the card for inputs moved by 1e-6);
-              one exact_high call under torch.profiler (device busy, launches,
-              the ten largest device operations); profile_segments at 'fused'
+              one exact_high call under torch.profiler, a replay of the
+              fit's CUDA graph (device busy, launches, the ten largest device
+              operations; 0/0/20/40/40 asserted, and the hand-written kernels
+              the trace shows on the device equal to the eager first call's,
+              K3's 20 among them); profile_segments at 'fused'
               and 'high' (20 iterations of each pass kind, launches
               asserted); profile_refresh_cadence at --groups 3 --reps 1
               (20/20/6, 20/20/6, 20/20/5); cli.fitting_proxe --exact on 300
@@ -1090,7 +1096,14 @@ def check_s2_slice(dev, assets, xs, cam_int, max_d, scene_idx, kernels, want):
         raise AssertionError(f"[s2] launch counts {launches} != {want}")
     if x72.shape != (N_BODIES, 72) or not torch.isfinite(x72).all() or not loss_last < loss0:
         raise AssertionError(f"[s2] fitted bodies not finite [N, 72] or loss not falling: {loss0} -> {loss_last}")
-    return {"wall_s": wall, "launches": launches, "loss_first": loss0, "loss_last": loss_last}
+
+    def again(seed):
+        return run(xs, cam_int, max_d, cam_ext, scene_idx, generator=torch.Generator(device=dev).manual_seed(seed))
+
+    again(SEED + 2)  # the key's second call: captured
+    replayed = check_replayed("[s2]", run, kernels, lambda: again(SEED + 3), want)
+    return {"wall_s": wall, "launches": launches, "loss_first": loss0, "loss_last": loss_last,
+            "replayed": replayed}
 
 
 N_FILES = 300  # TestOP's default n_samples, the reference's per-scene population
@@ -1113,6 +1126,44 @@ def counted(kernels, fn):
     torch.cuda.synchronize()
     wall = time.time() - t0
     return out, {k.name: k.launches for k in kernels}, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+# the device kernels of csrc/ that K1-K5 launch (their packs and reductions too): a trace's names hold them
+HAND_WRITTEN = ("skin_fwd_kernel", "skin_pack_kernel", "skin_bwd_coef_kernel", "splitk_gemm_kernel",
+                "reduce_tiles_kernel", "nn_argmin_kernel", "split_wgmma_kernel", "split_reduce_kernel",
+                "split_pack_kernel")
+
+
+def hand_written_on_device(fn):
+    """(fn(), the profile, {device kernel name: launches} of the hand-written
+    kernels in one profiled run of fn): what ran on the card, from the trace,
+    whether fn launched them itself or replayed a CUDA graph that holds them."""
+    import torch
+
+    from psi_tpu_torch.scripts.profile_fit import device_events
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof, {e.key: e.count for e in device_events(prof) if any(h in e.key for h in HAND_WRITTEN)}
+
+
+def check_replayed(tag: str, run, kernels, fn, want: dict) -> dict:
+    """The main path's launches: one more call of ``run``'s program, which
+    must be a replay of its CUDA graph (a key's third or later call). The
+    launch counts of ``kernels`` during it must equal ``want``, and the
+    replay must be counted in ``run.graph_stats()``."""
+    before = run.graph_stats()
+    _, launches, wall, _ = counted(kernels, fn)
+    after = run.graph_stats()
+    log(f"{tag} replayed call {wall:.4f} s: launches {launches} (want {want}); graph_stats {after}")
+    check_launches(f"{tag} replayed call", launches, want)
+    if not (after["replays"] == before["replays"] + 1 and after["eager"] == before["eager"]
+            and after["captures"] == before["captures"] == 1 and after["graphs"] == 1):
+        raise AssertionError(f"{tag} the call did not replay the program's one graph: {before} -> {after}")
+    return {"wall_s": wall, "launches": launches, "graph_stats": after}
 
 
 def want_launches(kernels, k1: int, k2: int, k3: int, k4: int = 0, k5: int = 0) -> dict:
@@ -2811,15 +2862,26 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
     if not (card[0] <= tol_max and card[1] <= tol_mean):
         raise AssertionError("[exact] CPU and card fits drift apart beyond the fit's own sensitivity")
 
-    # ---- one exact_high call under torch.profiler
-    xs, cam_b, sidx_b = profile_fused.fit_inputs(np.random.default_rng(SEED + 95), N_BODIES, 1, dev)
+    # ---- one exact_high call under torch.profiler: the main path's, a replay of the program's graph, with its
+    # launches counted (Kernel.launches) and measured on the device (the trace) against the eager first call's
+    xs, cam_b, sidx_b = profile_fused.fit_inputs(np.random.default_rng(SEED + 95), N_BODIES, 3, dev)
     fit = make_fit_step(assets_f32, cfg, want_metrics=False)
-    fit(xs[0], cam_b, sidx_b)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fit(xs[0], cam_b, sidx_b)
-        torch.cuda.synchronize()
+    _, _, eager_on_device = hand_written_on_device(lambda: fit(xs[0], cam_b, sidx_b))
+    fit(xs[1], cam_b, sidx_b)  # the key's second call: captured
+    profiled = []
+
+    def profiled_replay():
+        profiled.append(hand_written_on_device(lambda: fit(xs[2], cam_b, sidx_b)))
+
+    out["replayed"] = check_replayed("[exact] exact_high", fit, kernels, profiled_replay,
+                                     want_launches(kernels, 0, 0, NUM_ITER, per_call, per_call))
+    ((_, prof, replay_on_device),) = profiled
+    out["replayed"]["on_device"] = replay_on_device
+    log(f"[exact] hand-written kernels on the device: eager call {eager_on_device}; replayed call {replay_on_device}")
+    nn_on_device = sum(n for name, n in replay_on_device.items() if "nn_argmin_kernel" in name)
+    if replay_on_device != eager_on_device or nn_on_device != NUM_ITER:
+        raise AssertionError(f"[exact] the replay ran other hand-written kernels on the device than the eager call: "
+                             f"{replay_on_device} != {eager_on_device} (K3 {nn_on_device}, want {NUM_ITER})")
     events = device_events(prof)
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     if not busy_ms > 0:
@@ -3082,6 +3144,11 @@ def smoke(dev) -> None:
     wall = statistics.median(walls)
     log(f"[slice] generate+fit N={N_BODIES}, {NUM_ITER} iters: median {wall:.4f} s of {len(walls)} "
         f"({walls[0]:.4f}, {walls[1]:.4f}, {walls[2]:.4f}) -> {N_BODIES / wall:.2f} bodies/s on {smi}")
+    replayed = check_replayed(
+        "[slice]", run, kernels + (SPLIT_FWD, SPLIT_BWD),
+        lambda: run(xs, cam_int, max_d, cam_ext, scene_idx,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 13)),
+        {**want, SPLIT_FWD.name: 0, SPLIT_BWD.name: 0})
 
     # ---- 7. the same slice on the CPU (twins) and on the card (kernels)
     t0 = time.time()
@@ -3252,7 +3319,7 @@ def smoke(dev) -> None:
             "vposer_untangle": vposer["split_launches_untangle"][k.name], "eval_scorer": scores["split_launches"][k.name],
             "generate_fit_s1": launches_split[k.name]}
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
-                              "peak_gb": peak_gb},
+                              "peak_gb": peak_gb, "replayed": replayed},
                     "k1": {"stage_ms": k1["stage_ms"]},
                     "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"]}, "hmma": hmma,
                     "split_hgmma": split_hgmma, "k4_k5": split,

@@ -21,7 +21,7 @@ Precision tiers, psi_tpu's:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,6 +48,34 @@ def vertices2joints(J_regressor: torch.Tensor, vertices: torch.Tensor) -> torch.
     return torch.einsum("bik,ji->bjk", vertices, J_regressor)
 
 
+# (parents, dtype, device) -> the kinematic tree's constant operands on that device
+_TREE_OPERANDS: Dict[tuple, tuple] = {}
+
+
+def _tree_operands(parents: Tuple[int, ...], dtype: torch.dtype, device: torch.device):
+    """(parents[1:] as an index tensor, [(joint ids, their index tensor)] one
+    depth level after another, the homogeneous row [0, 0, 0, 1]), all on
+    ``device``, made at the first call for a tree, dtype and device and kept:
+    later calls copy nothing from the host, so a CUDA graph can capture them."""
+    key = (tuple(parents), dtype, device)
+    hit = _TREE_OPERANDS.get(key)
+    if hit is None:
+        J = len(parents)
+        depth = [0] * J
+        for j in range(1, J):
+            depth[j] = depth[parents[j]] + 1
+        levels = []
+        for lvl in range(1, max(depth) + 1):
+            ids = [j for j in range(J) if depth[j] == lvl]
+            levels.append((ids, torch.tensor(ids, dtype=torch.int64, device=device)))
+        hit = _TREE_OPERANDS[key] = (
+            torch.tensor(parents[1:], dtype=torch.int64, device=device),
+            levels,
+            torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device),
+        )
+    return hit
+
+
 def batch_rigid_transform(
     rot_mats: torch.Tensor, joints: torch.Tensor, parents: Tuple[int, ...]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,21 +87,17 @@ def batch_rigid_transform(
     rest pose.
     """
     B, J = joints.shape[:2]
-    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, list(parents[1:])]], dim=1)
-    pad_row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=joints.dtype, device=joints.device)
+    parent_ids, levels, pad_row = _tree_operands(parents, joints.dtype, joints.device)
+    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parent_ids]], dim=1)
     local = torch.cat(
         [torch.cat([rot_mats, rel[..., None]], dim=-1), pad_row.expand(B, J, 1, 4)], dim=-2
     )  # [B, J, 4, 4]
 
-    depth = [0] * J
-    for j in range(1, J):
-        depth[j] = depth[parents[j]] + 1
     world = [None] * J
     world[0] = local[:, 0]
-    for lvl in range(1, max(depth) + 1):
-        ids = [j for j in range(J) if depth[j] == lvl]
+    for ids, ids_dev in levels:
         par = torch.stack([world[parents[j]] for j in ids], dim=1)  # [B, n, 4, 4]
-        comp = torch.matmul(par, local[:, ids])
+        comp = torch.matmul(par, local[:, ids_dev])
         for k, j in enumerate(ids):
             world[j] = comp[:, k]
     transforms = torch.stack(world, dim=1)  # [B, J, 4, 4]

@@ -46,6 +46,16 @@ one per row), ``make_fit_step_carry_opt_state`` (the reference's Adam
 carried from body to body, serial) and ``FittingOP`` (numpy populations
 and the reference's ``body_gen_*.pkl`` files).
 
+On the card the fit replays a CUDA graph (``_FitProgram``): the first call
+with a given device, input shapes and dtypes and ``SceneAssets`` object runs
+as above, the second captures the whole call (every pass, its backward, Adam
+and the metrics pass) into one ``torch.cuda.CUDAGraph`` and replays it, and
+later calls only replay: one graph launch in place of some 36,500 kernel
+launches from the host, the same kernels in the same order. A replayed call
+opens one span, ``psi.fit.replay``, and none of the ones above. The CPU, a
+mesh and ``cheap_collision_verts > 0`` (whose subset is built from host
+arrays in the middle of the loop) stay eager.
+
 Population sharding (``mesh=`` of ``make_fit_step``, ``make_generate_fit_step``
 and ``make_generate_fit_rows``; ``parallel/mesh.py``): every rank is given the
 whole population and fits its own rows [r N/R, (r+1) N/R) with the chunks
@@ -61,6 +71,9 @@ from __future__ import annotations
 
 import os
 import pickle
+import threading
+import warnings
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -76,7 +89,9 @@ from psi_tpu_torch.geometry.bodyvec import (
     convert_to_3D_rot,
     convert_to_6D_rot,
 )
+from psi_tpu_torch.ops import _cuda
 from psi_tpu_torch.ops.chamfer import chamfer_one_sided, chamfer_one_sided_nn
+from psi_tpu_torch.ops.precision import PACKS
 from psi_tpu_torch.ops.prune import select_near_tiles
 from psi_tpu_torch.ops.sdf import (
     sdf_trilinear_from_cache,
@@ -312,7 +327,128 @@ class _Chunk:
         self.sel = None
 
 
-def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> Callable:
+# one capture at a time in the process: a capture must not record another thread's launches
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lives on a card, where a fit can be graphed."""
+    return t.is_cuda
+
+
+class _Graph:
+    """A fit program's one graph slot: the key it holds and, once the key's
+    second call has captured it, the graph, its static inputs and outputs,
+    the hand-written kernels' launches it recorded, the packed planes it was
+    served (with their sources' versions), and strong references to what it
+    reads outside its own memory pool."""
+
+    def __init__(self, key: tuple, assets: SceneAssets):
+        self.key = key
+        self.assets = weakref.ref(assets)
+        self.graph = None  # None: the key has been seen once, and ran eagerly
+        self.failed = False  # its capture raised: the key stays eager
+        self.static_in = self.static_out = None
+        self.recorded: List[Tuple[_cuda.Kernel, int]] = []
+        self.packed: List[tuple] = []  # (weak reference to a source, its version at capture, planes)
+        self.keep = ()
+        self.stream = None  # the stream of the last replay
+
+    def holds(self, key: tuple, assets: SceneAssets) -> bool:
+        """Whether a call with ``key`` and ``assets`` may use this slot: the
+        same key, the same live ``SceneAssets`` (not a new one at a dead one's
+        id), and every packed plane the graph read still its source's."""
+        if self.key != key or self.assets() is not assets:
+            return False
+        return all(src() is not None and src()._version == version for src, version, _ in self.packed)
+
+
+class _FitProgram:
+    """``fit`` of ``_fit_program``, replayed from a CUDA graph on the card.
+
+    A call is graphed when its tensors are on the card, there is no mesh and
+    ``cfg.cheap_collision_verts`` is 0. Its key is the device, the inputs'
+    shapes and dtypes and the ``SceneAssets`` object (held weakly: a new one
+    never meets an old graph). The program holds one graph: every caller
+    gives a program one key (a fixed population, one ``SceneAssets``), and a
+    new key takes the slot. The first call of a key runs eagerly, which also
+    warms what is built lazily (the kernel library, cuBLAS, the packed planes
+    of ``ops.precision.PACKS``); the second captures the call and replays it;
+    later calls copy their inputs into the graph's, replay it and return
+    clones of its outputs, never its buffers, with no synchronize. A packed
+    plane whose source changed in place since the capture drops the graph (the
+    call runs eagerly and repacks, the next one captures anew). A capture
+    that raises is warned of and its key stays eager."""
+
+    def __init__(self, run: Callable, graphed: bool):
+        self.run = run
+        self.graphed = graphed
+        self.lock = threading.Lock()  # the slot, the static buffers and the replays
+        self.slot: Optional[_Graph] = None
+        self.stats = {"eager": 0, "captures": 0, "replays": 0, "failed_captures": 0}
+
+    def graph_stats(self) -> Dict[str, int]:
+        """Calls run eagerly, captures, replays (a capturing call replays
+        too), failed captures, and the graphs held (0 or 1)."""
+        with self.lock:
+            return {**self.stats, "graphs": int(self.slot is not None and self.slot.graph is not None)}
+
+    def __call__(self, assets: SceneAssets, x72_init, cam_ext, scene_idx):
+        ins = (x72_init, cam_ext, scene_idx)
+        if self.graphed and all(_on_card(t) for t in ins):
+            key = (x72_init.device, *(tuple(t.shape) for t in ins), *(t.dtype for t in ins), id(assets))
+            with self.lock:
+                slot = self.slot
+                if slot is None or not slot.holds(key, assets):
+                    self.slot = _Graph(key, assets)  # seen once: this call runs eagerly
+                elif not slot.failed and (slot.graph is not None or self._capture(slot, assets, ins)):
+                    return self._replay(slot, ins)
+                self.stats["eager"] += 1
+        else:
+            with self.lock:
+                self.stats["eager"] += 1
+        return self.run(assets, *ins)
+
+    def _capture(self, slot: _Graph, assets: SceneAssets, ins) -> bool:
+        """Capture the call into ``slot``; on failure warn, count it and
+        leave the key eager."""
+        static_in = tuple(torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t) for t in ins)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _CAPTURE_LOCK, PACKS.served() as packed:
+                before = [k.captured for k in _cuda.KERNELS]
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    static_out = self.run(assets, *static_in)
+                recorded = [(k, k.captured - b) for k, b in zip(_cuda.KERNELS, before) if k.captured != b]
+        except Exception as e:  # noqa: BLE001 - whatever broke the capture, the eager call still runs
+            warnings.warn(f"fit: CUDA graph capture failed, calls of this shape stay eager: {e!r}", RuntimeWarning)
+            slot.failed = True
+            self.stats["failed_captures"] += 1
+            return False
+        slot.graph, slot.static_in, slot.static_out, slot.recorded = graph, static_in, static_out, recorded
+        slot.packed = packed
+        slot.keep = tuple(vars(assets).values())
+        self.stats["captures"] += 1
+        return True
+
+    def _replay(self, slot: _Graph, ins):
+        with span("psi.fit.replay"):
+            stream = torch.cuda.current_stream(ins[0].device)
+            if slot.stream is not None and slot.stream != stream:
+                stream.wait_stream(slot.stream)  # the last replay's clones before its buffers are reused
+            slot.stream = stream
+            for dst, src in zip(slot.static_in, ins):
+                dst.copy_(src)
+            slot.graph.replay()
+            x72, final, hist = slot.static_out
+            out = (x72.clone(), None if final is None else {k: v.clone() for k, v in final.items()}, hist.clone())
+        for k, n in slot.recorded:
+            k.count(n)
+        self.stats["replays"] += 1
+        return out
+
+
+def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> _FitProgram:
     """fit(assets, x72_init [N, 72], cam_ext [N, 4, 4], scene_idx [N]) ->
     (x72 [N, 72], final per-body metrics or None, loss_hist [num_iter, N]).
 
@@ -321,7 +457,8 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> Callab
     metrics (at full-vertex semantics, whatever subset the cheap passes
     used); the fitted bodies are the same either way. With a mesh this rank
     fits its rows of the N it is given, and the results are gathered; N must
-    divide evenly over the mesh."""
+    divide evenly over the mesh. On the card, calls are replayed from CUDA
+    graphs (``_FitProgram``)."""
     if cfg.lbs_precision not in LBS_PRECISIONS:
         raise ValueError(f"lbs_precision must be one of {LBS_PRECISIONS}, got {cfg.lbs_precision!r}")
     kinds = fit_schedule(cfg)
@@ -397,7 +534,7 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> Callab
                     final = dict(zip(names, stacked.unbind(dim=1)))
             return x72, final, loss_hist
 
-    return fit
+    return _FitProgram(fit, graphed=mesh is None and cfg.cheap_collision_verts <= 0)
 
 
 def make_fit_step(assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True, mesh=None) -> Callable:
@@ -410,6 +547,7 @@ def make_fit_step(assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True
     def bound(x72_init, cam_ext, scene_idx):
         return fit(assets, x72_init, cam_ext, scene_idx)
 
+    bound.graph_stats = fit.graph_stats
     return bound
 
 
@@ -431,6 +569,7 @@ def make_generate_fit_step(
         x72 = generate_bodies(model, xs, cam_int, max_d, n_samples, generator=generator, eps=eps)
         return fit(assets, x72, cam_ext, scene_idx)
 
+    run.graph_stats = fit.graph_stats
     return run
 
 
@@ -451,6 +590,7 @@ def make_generate_fit_rows(model: Model, assets: SceneAssets, cfg: FitConfig, wa
                                    generator=generator, eps=eps)
         return fit(assets, x72, cam_ext_rows, sidx_rows)
 
+    run.graph_stats = fit.graph_stats
     return run
 
 

@@ -21,6 +21,11 @@ compiler writes to a temporary name no other thread or process can hold.
 A launch itself takes no lock; its count is raised under the kernel's own
 lock, so ``Kernel.launches`` stays exact while several threads launch (a
 router's workers, one a model).
+
+CUDA graphs: a launch onto a stream that is being captured is recorded
+into the graph and runs only when the graph is replayed, so it raises
+``Kernel.captured`` and not ``launches``; whoever replays the graph adds
+what its capture recorded (``Kernel.count``).
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ RESTYPES = {"psi_skin_fwd_workspace": ctypes.c_size_t, "psi_skin_bwd_workspace":
             "psi_split_mm_grad_workspace": ctypes.c_size_t}
 
 _library: Optional[ctypes.CDLL] = None
+KERNELS: List["Kernel"] = []  # every Kernel made, in the order made
 _build_lock = threading.RLock()  # library() holds it around build_library()
 
 
@@ -164,7 +170,9 @@ class Kernel:
 
     ``launches`` is raised by one, under a lock, each time ``launch`` runs
     the kernel and its launch is accepted. Callers that want the count of
-    one run set it to 0 before and read it after.
+    one run set it to 0 before and read it after. A launch into a CUDA graph
+    being captured raises ``captured`` instead; a replay of that graph
+    raises ``launches`` through ``count``.
     """
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
@@ -173,8 +181,10 @@ class Kernel:
         self.source = source  # path of the CUDA source, relative to the repo root
         self.replaces = replaces  # the Pallas kernel it ports, file:line
         self.launches = 0
+        self.captured = 0  # launches recorded into CUDA graphs, not run
         self._entry = None  # the bound C function, looked up at the first launch
         self._count_lock = threading.Lock()
+        KERNELS.append(self)
 
     def launch(self, device: torch.device, *args) -> None:
         entry = self._entry
@@ -182,13 +192,24 @@ class Kernel:
             entry = self._entry = getattr(library(), self.symbol)
         if device.index == torch._C._cuda_getDevice():
             err = entry(*args)
+            capturing = torch.cuda.is_current_stream_capturing()
         else:  # the entry point launches on the current device: make it the tensors'
             with torch.cuda.device(device):
                 err = entry(*args)
+                capturing = torch.cuda.is_current_stream_capturing()
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with cudaError {err}")
         with self._count_lock:
-            self.launches += 1
+            if capturing:
+                self.captured += 1
+            else:
+                self.launches += 1
+
+    def count(self, n: int) -> None:
+        """Add ``n`` launches that ran without ``launch``: those a CUDA graph
+        recorded, each time it is replayed."""
+        with self._count_lock:
+            self.launches += n
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:

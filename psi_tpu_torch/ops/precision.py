@@ -44,10 +44,11 @@ Two routes, chosen by the device of the tensors:
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 import weakref
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -380,11 +381,13 @@ class PackCache:
     the tensor goes) and the layout asked for, and holds the tensor's
     ``_version`` at packing: an in-place change of the source bumps the
     version, and the next call repacks. Nothing is stored while a CUDA graph
-    is being captured (the planes would live in the graph's pool)."""
+    is being captured (the planes would live in the graph's pool); what a
+    capture is served from the cache it learns through ``served``."""
 
     def __init__(self):
         self._lock = threading.RLock()  # a dying source's callback may run inside get()
         self._entries = {}  # id(source) -> (weak reference, {layout: (version, planes)})
+        self._served = threading.local()  # .log: this thread's list inside served(), else absent
 
     def get(self, src: torch.Tensor, layout: tuple, build: Callable[[], torch.Tensor]) -> torch.Tensor:
         with self._lock:
@@ -392,6 +395,9 @@ class PackCache:
             if slot is not None and slot[0]() is src:
                 hit = slot[1].get(layout)
                 if hit is not None and hit[0] == src._version:
+                    log = getattr(self._served, "log", None)
+                    if log is not None:
+                        log.append((slot[0], hit[0], hit[1]))
                     return hit[1]
         planes = build()
         if planes.is_cuda and torch.cuda.is_current_stream_capturing():
@@ -409,6 +415,17 @@ class PackCache:
                 if self._entries.get(key, (None,))[0] is ref:
                     del self._entries[key]
         return drop
+
+    @contextlib.contextmanager
+    def served(self) -> Iterator[List[tuple]]:
+        """The planes this thread is given from the cache while inside, as
+        (weak reference to the source, its version then, planes): a CUDA graph
+        captured inside reads them, and is stale once a source's version moves."""
+        log = self._served.log = []
+        try:
+            yield log
+        finally:
+            del self._served.log
 
     def nbytes(self) -> int:
         """Device bytes held."""

@@ -23,6 +23,8 @@ And ``lbs`` at 'high' against psi_tpu's unpatched 'high', and at
 of test_torch_body.py.
 """
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -331,6 +333,24 @@ def test_pack_cache_keeps_a_constant_and_repacks_after_an_in_place_change():
     assert again is not first and len(builds) == 3 and torch.equal(again, src.to(torch.bfloat16))
     del src, first, again
     assert cache.nbytes() == 0
+
+
+def test_pack_cache_reports_what_it_serves_to_this_thread_inside_served():
+    """Inside ``served()`` a hit is logged with its source and version (what a
+    CUDA graph captured there reads); a miss, a hit outside and another
+    thread's hit are not."""
+    cache = tp.PackCache()
+    src, other = torch.ones(6), torch.zeros(6)
+    planes = cache.get(src, ("k4",), lambda: src.to(torch.bfloat16))
+    with cache.served() as log:
+        cache.get(other, ("k4",), lambda: other.to(torch.bfloat16))  # a miss: packed now, not served from the cache
+        assert cache.get(src, ("k4",), None) is planes
+        worker = threading.Thread(target=cache.get, args=(other, ("k4",), None))
+        worker.start()
+        worker.join()
+    cache.get(src, ("k4",), None)
+    ((ref, version, got),) = log
+    assert ref() is src and version == src._version and got is planes
 
 
 # ---- lbs at 'high' and at exact=True

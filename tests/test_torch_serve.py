@@ -666,6 +666,7 @@ def test_two_threads_launching_together_count_every_launch(monkeypatch):
     calls = []
     kernel._entry = lambda *args: calls.append(args) or 0
     monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     device, n = torch.device("cuda", 0), 20000
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
