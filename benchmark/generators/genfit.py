@@ -26,6 +26,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from benchmark import inputs, system
+from benchmark.reference import body as rbody
 from benchmark.reference import fit as rfit
 from benchmark.reference.numerics import CONTROL, STATED, Numerics
 
@@ -72,10 +73,13 @@ def population_gaps(x_prog: torch.Tensor, x_ref: torch.Tensor, x_init: torch.Ten
     """Fitted populations compared (see the module docstring): the median
     body's median coordinate gap, and the mean over bodies of the relative
     gap of how far each body moved from its sample (a body left unfitted
-    reads 1)."""
+    reads 1). The distances are taken in the 6-D rotation form that the fit
+    moves in: the axis-angle that a 72-D body stores turns to its opposite
+    near a half turn, a jump of ~2 pi between two equal rotations."""
     body = (x_prog - x_ref).abs().median(dim=1).values
-    moved_ref = (x_ref - x_init).norm(dim=1)
-    moved = ((x_prog - x_init).norm(dim=1) - moved_ref).abs() / moved_ref.clamp(min=1e-6)
+    prog, ref, init = (rbody.to_6d(x) for x in (x_prog, x_ref, x_init))
+    moved_ref = (ref - init).norm(dim=1)
+    moved = ((prog - init).norm(dim=1) - moved_ref).abs() / moved_ref.clamp(min=1e-6)
     return {"fit_median_gap": float(torch.quantile(body, 0.5)), "fit_move_gap": float(moved.mean())}
 
 

@@ -1,8 +1,9 @@
 """Share of the traced window in which the device idled while the host was
-in the fit's collision term (``psi.fit.collision``: the SDF gather)."""
+in the fit's collision term (``psi.fit.collision``: the SDF gather). A fit that
+replays its CUDA graph never enters the phase on the host: 0."""
 
-from benchmark.spans import GENFIT, idle_pct_in
+from benchmark.spans import fit_phase_idle_pct
 
 
 def read(ctx):
-    return idle_pct_in(ctx, GENFIT, "psi.fit.collision")
+    return fit_phase_idle_pct(ctx, "psi.fit.collision")

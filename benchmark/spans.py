@@ -1,6 +1,11 @@
 """The program's spans in the traced window: which phase the host was in
 while the device idled, and the host's time a fit pass or a training step.
 
+A fit that replays its CUDA graph opens one ``psi.fit.replay`` span in place
+of its passes and their phases. The host then never enters a phase, so that
+phase's idle share is nought (``fit_phase_idle_pct``), and the host's time a
+pass is the replay's time over the passes it replays (``host_ms_per_pass``).
+
 The program opens ``psi.*`` spans (``psi_tpu_torch/utils/profiling.py::span``)
 while a profiler runs; ``TraceView`` keeps them in ``.host``. A phase's idle
 share is the part of its spans, clipped to the window, in which the device's
@@ -20,6 +25,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 GENFIT = ("psi.sample", "psi.fit.decode", "psi.fit.contact", "psi.fit.collision", "psi.fit.backward",
           "psi.fit.adam")
 TRAIN = ("psi.train.stage", "psi.train.forward", "psi.train.backward", "psi.train.optimizer")
+# the span a replayed fit opens in place of its passes and their phases
+REPLAY = "psi.fit.replay"
 # the spans of one training step, in the order it opens them
 STEP = TRAIN[1:]
 
@@ -73,18 +80,36 @@ def idle_pct_in(ctx, family: Sequence[str], name: str) -> Optional[float]:
     return shares.get(name) if shares is not None else None
 
 
+def fit_phase_idle_pct(ctx, name: str) -> Optional[float]:
+    """The idle share of one of the fit's phases: as ``idle_pct_in``, and 0
+    where the window holds replayed fits and no span of the phase (the host
+    was never in it)."""
+    shares = idle_shares(ctx.trace, GENFIT)
+    if shares is None:
+        return None
+    if name in shares:
+        return shares[name]
+    return 0.0 if _clipped(ctx.trace, lambda n: n == REPLAY) else None
+
+
 def _inside(t, keep: Callable[[str], bool]) -> List[Tuple[int, int, str]]:
     """The spans ``keep`` selects that lie wholly inside the window, in time order."""
     return sorted((s, e, n) for s, e, n in t.host if keep(n) and t.t0 <= s and e <= t.t1)
 
 
-def host_ms_per_pass(t) -> Optional[float]:
+def host_ms_per_pass(t, passes_per_replay: Optional[int] = None) -> Optional[float]:
     """Mean host milliseconds of the fit's passes (``psi.fit.pass.*``) that lie
-    wholly inside the window; None without device events or such spans."""
+    wholly inside the window. Where it holds none, and ``passes_per_replay``
+    is given, the mean host milliseconds of its replayed fits
+    (``psi.fit.replay``) over the passes each replays. None without device
+    events or such spans."""
     if t is None or not t.device:
         return None
     took = [e - s for s, e, _ in _inside(t, lambda n: n.startswith("psi.fit.pass."))]
-    return sum(took) / len(took) / 1e6 if took else None
+    if took:
+        return sum(took) / len(took) / 1e6
+    took = [e - s for s, e, _ in _inside(t, lambda n: n == REPLAY)]
+    return sum(took) / len(took) / passes_per_replay / 1e6 if took and passes_per_replay else None
 
 
 def host_ms_per_step(t) -> Optional[float]:

@@ -15,14 +15,9 @@ def bench():
     return json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
-# Mixes that no cell runs yet, with the configuration they were calibrated on:
-# the production tier's, whose host-paced rate spread too widely for a bound.
-KEPT = {"genfit_prod": "psi_s1"}
-
-
 def mixes():
-    """Every cell's traffic mix, and each kept mix, with the configuration it runs on."""
-    return {**KEPT, **{w["traffic"]: w["config"] for w in bench()["workloads"]}}
+    """Every cell's traffic mix, with the configuration it runs on."""
+    return {w["traffic"]: w["config"] for w in bench()["workloads"]}
 
 
 def config(name: str, image_size: int = 32):

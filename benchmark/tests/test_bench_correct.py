@@ -58,3 +58,20 @@ def test_training_check_holds_a_window_step_that_starts_an_epoch():
     gen.release()
     compared = gen.check()
     assert all(compared[k] <= lim for k, lim in tr["limits"].items()), compared
+
+
+def test_a_half_turn_written_the_other_way_moves_no_body():
+    """Two fitted populations that differ only in how a rotation near a half
+    turn is written (axis-angle r against r - 2 pi r/|r|, the same rotation)
+    read no gap in how far each body moved, and a body left unfitted reads 1."""
+    from benchmark.generators.genfit import population_gaps
+
+    g = torch.Generator().manual_seed(5)
+    x_init = torch.randn(8, 72, generator=g, dtype=torch.float64)
+    x_ref = x_init + 0.1 * torch.randn(8, 72, generator=g, dtype=torch.float64)
+    axis = torch.nn.functional.normalize(torch.randn(8, 3, generator=g, dtype=torch.float64), dim=1)
+    x_ref[:, 3:6] = (torch.pi - 1e-3) * axis
+    x_prog = x_ref.clone()
+    x_prog[:4, 3:6] = x_ref[:4, 3:6] - 2 * torch.pi * axis[:4]
+    assert population_gaps(x_prog, x_ref, x_init)["fit_move_gap"] < 1e-9
+    assert population_gaps(x_init, x_ref, x_init)["fit_move_gap"] == pytest.approx(1.0)
