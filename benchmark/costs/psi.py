@@ -134,11 +134,21 @@ def genfit_call_flops(cfg: Dict, population: int, num_iter: int, searches: int, 
 
 
 def train_step_flops(cfg: Dict, B: int, cloud: int) -> float:
-    """A stage-1 training step at batch B: the trunk, the encoder and decoder
-    MLPs and the body decode, forward and backward (about 3x the forward),
-    and the contact search over the whole cloud."""
-    h, e = cfg["latentD"], cfg["eps_d"]
-    mlp = (linear(B, cfg["n_dim_body"], h) + 4 * linear(B, 2 * h, 2 * h) + 2 * linear(B, 2 * h, e)
-           + linear(B, e, h) + 4 * linear(B, 2 * h, 2 * h) + linear(B, 2 * h, cfg["n_dim_body"]))
-    fwd = trunk_flops(B, cfg["scene_in_channels"], cfg["image_size"], 32, h) + mlp + decode_flops(cfg, B)
-    return 3.0 * fwd + contact_flops(B, cfg["body"]["n_contact"], cloud)
+    """A training step at batch B: the trunk (stage 2: both trunks), the
+    encoder and decoder MLPs and the body decode, forward and backward
+    (about 3x the forward), and the contact search over the whole cloud.
+    Stage 2's decoders and trunks are its sampler's; its encoders add the
+    global VAE's torso layer, the local VAE's pose layer, their ResBlocks
+    and their mean and variance heads."""
+    n = cfg["n_dim_body"]
+    if cfg["model_type"] == "s1":
+        h, e = cfg["latentD"], cfg["eps_d"]
+        mlp = (linear(B, n, h) + 4 * linear(B, 2 * h, 2 * h) + 2 * linear(B, 2 * h, e)
+               + linear(B, e, h) + 4 * linear(B, 2 * h, 2 * h) + linear(B, 2 * h, n))
+        fwd = trunk_flops(B, cfg["scene_in_channels"], cfg["image_size"], 32, h) + mlp
+    else:
+        hg, hl = cfg["latentD_g"], cfg["latentD_l"]
+        enc_g = linear(B, 3, hg) + 4 * linear(B, 2 * hg, 2 * hg) + 2 * linear(B, 2 * hg, 32)
+        enc_l = linear(B, n - 3, hl) + 4 * linear(B, 3 * hl, 3 * hl) + 2 * linear(B, 3 * hl, 32)
+        fwd = sampler_flops(cfg, B, B) + enc_g + enc_l
+    return 3.0 * (fwd + decode_flops(cfg, B)) + contact_flops(B, cfg["body"]["n_contact"], cloud)

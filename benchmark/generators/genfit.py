@@ -26,9 +26,48 @@ from typing import Dict, List, Tuple
 import torch
 
 from benchmark import inputs, system
+from benchmark.faults import patched
 from benchmark.reference import body as rbody
 from benchmark.reference import fit as rfit
 from benchmark.reference.numerics import CONTROL, STATED, Numerics
+
+
+# the CPU tests' toy run: the traffic's overrides, and the configuration cut to toy widths
+TOY = {"population": 8, "num_iter": 12, "pool": 4, "trace_seconds": 0.5, "fit": {"prune": 128}}
+
+
+def toy_config(cfg: Dict) -> Dict:
+    return inputs.toy_psi(cfg, image_size=32)
+
+
+def plant(fault: str):
+    """``benchmark/faults.py``'s faults in the generate+fit call: the fit's
+    Adam returns the bodies as it got them (unchanged_state); every other
+    body of the population takes no gradient, the sum rescaled to the whole
+    (half_batch); body 0 of every sampled population is moved by 0.5 m in
+    height (altered_answer)."""
+    import psi_tpu_torch.fit.fitting as fitting
+
+    if fault == "unchanged_state":
+        return patched(fitting.Adam, "step", lambda self, x, g: x)
+    if fault == "half_batch":
+        inner = fitting._per_body_losses
+
+        def half_loss(assets, xhr, *a, **k):
+            total, rest = inner(assets, xhr, *a, **k)
+            per = rest[0]["total"]
+            return per[::2].sum() * (per.shape[0] / per[::2].shape[0]), rest
+
+        return patched(fitting, "_per_body_losses", half_loss)
+    if fault == "altered_answer":
+        inner_g = fitting.generate_bodies
+
+        def sampled(*a, **k):
+            x72 = inner_g(*a, **k)
+            return torch.cat([x72[:1] + 0.5 * (torch.arange(72, device=x72.device) == 1), x72[1:]])
+
+        return patched(fitting, "generate_bodies", sampled)
+    raise ValueError(f"unknown fault {fault!r}")
 
 
 class Reference:

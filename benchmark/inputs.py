@@ -10,6 +10,7 @@ reads them as they are. Nothing here imports the program.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Tuple
 
@@ -23,6 +24,17 @@ SEED_MASK = (1 << 63) - 1
 def generator(seed: int, stream: int, device) -> torch.Generator:
     """A generator for one purpose (``stream``) of one seed."""
     return torch.Generator(device=device).manual_seed((int(seed) * 1000003 + stream) & SEED_MASK)
+
+
+def toy_psi(cfg: Dict, image_size: int) -> Dict:
+    """A PSI configuration cut to the CPU tests' toy widths: latents 32,
+    a 300-vertex body with 64 contact vertices, 16-cell SDF grids, 512-point
+    clouds, snapshots of ``image_size`` px. SMPL-X's joint tree is kept."""
+    cfg = copy.deepcopy(cfg)
+    cfg.update(latentD=32, latentD_g=32, latentD_l=32, image_size=image_size)
+    cfg["body"].update(num_verts=300, n_contact=64)
+    cfg["scenes"].update(sdf_dim=16, scene_points=512)
+    return cfg
 
 
 def fill_weights(shapes: Dict[str, Tuple[int, ...]], gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
@@ -50,6 +62,29 @@ def fill_weights(shapes: Dict[str, Tuple[int, ...]], gen: torch.Generator, devic
             out[n] = r / math.sqrt(math.prod(shapes[n][1:]))
         else:
             out[n] = 0.01 * r
+    return out
+
+
+def training_start(shapes: Dict[str, Tuple[int, ...]], gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
+    """Weights as a training run of the program starts them (PyTorch's
+    default bound, ``utils/init.py::seeded_init_``), drawn in one call: every
+    matrix or convolution kernel, and its bias, uniform in +-1/sqrt(fan_in)
+    of the kernel; a BatchNorm (found by its running_mean) at identity."""
+    names = sorted(shapes)
+    sizes = [math.prod(shapes[n]) for n in names]
+    flat = torch.rand(sum(sizes), generator=gen, device=device) * 2.0 - 1.0
+    bn = {n[: -len(".running_mean")] for n in names if n.endswith(".running_mean")}
+    out, o = {}, 0
+    for n, k in zip(names, sizes):
+        r = flat[o:o + k].reshape(shapes[n])
+        o += k
+        prefix, _, leaf = n.rpartition(".")
+        if leaf == "num_batches_tracked":
+            out[n] = torch.zeros(shapes[n], dtype=torch.int64, device=device)
+        elif prefix in bn:
+            out[n] = (torch.ones_like(r) if leaf in ("weight", "running_var") else torch.zeros_like(r))
+        else:
+            out[n] = r / math.sqrt(math.prod(shapes[prefix + ".weight"][1:]))
     return out
 
 

@@ -32,6 +32,14 @@ def roofline_pct(ctx, bound_s_per_unit: float, patterns: Sequence[str]) -> Optio
     return 100.0 * units * bound_s_per_unit / spent
 
 
+def rest_rate(ctx) -> Optional[float]:
+    """Units a second over the window's untraced part."""
+    c = ctx.counters
+    if not c.get("rest_units") or not c.get("rest_s"):
+        return None
+    return c["rest_units"] / c["rest_s"]
+
+
 def mfu_pct(ctx, flops_per_unit: float) -> Optional[float]:
     """The model operations of the window's untraced part over what the
     chip's bf16 peak does in it."""

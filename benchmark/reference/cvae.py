@@ -1,4 +1,5 @@
-"""Plain PSI CVAE samplers (stage 1 and stage 2) over a dict of weights.
+"""Plain PSI CVAEs (stage 1 and stage 2) over a dict of weights: their
+samplers and their training forwards.
 
 Written from the reference's source/cvae.py:341-534 and net_layers.py: a
 ResNet-18 trunk (stem, bn1, relu, maxpool, layer1, layer2) on the NCHW
@@ -90,3 +91,26 @@ def s1_forward(w: W, x75: torch.Tensor, xs: torch.Tensor, eps: torch.Tensor):
         z = _res(w, f"human_encoder.{i}", z)
     mu, logvar = _lin(w, "mu_enc", z), _lin(w, "logvar_enc", z)
     return s1_decode(w, mu + eps * torch.exp(0.5 * logvar), z_s), mu, logvar
+
+
+def _encode(w: W, p: str, x: torch.Tensor, n: int) -> torch.Tensor:
+    for i in range(n):
+        x = _res(w, f"{p}.{i}", x)
+    return x
+
+
+def s2_forward(w: W, x75: torch.Tensor, xs: torch.Tensor, eps_g: torch.Tensor, eps_l: torch.Tensor):
+    """Stage 2's training forward (BatchNorm on the batch; cvae.py:372-388,
+    train_s2.py:102-210): the global VAE encodes the translation, the local
+    VAE the 72-D rest and the *reconstructed* translation. Returns
+    (x_rec, mu_g, logvar_g, mu_l, logvar_l)."""
+    z_g = encode_scene(w, "trans_vae.", xs, train=True)
+    f = _encode(w, "trans_vae.encode", torch.cat([z_g, _lin(w, "trans_vae.torso_linear", x75[:, :3])], 1), 2)
+    mu_g, logvar_g = _lin(w, "trans_vae.mean_linear", f), _lin(w, "trans_vae.log_var_linear", f)
+    x_g = _mlp(w, "trans_vae.decode", torch.cat([mu_g + eps_g * torch.exp(0.5 * logvar_g), z_g], 1))
+    z_l = encode_scene(w, "pose_vae.", xs, train=True)
+    torso = _lin(w, "pose_vae.torso_linear", x_g)
+    f = _encode(w, "pose_vae.encode", torch.cat([_lin(w, "pose_vae.pose_linear", x75[:, 3:]), torso, z_l], 1), 2)
+    mu_l, logvar_l = _lin(w, "pose_vae.mean_linear", f), _lin(w, "pose_vae.log_var_linear", f)
+    x_l = _mlp(w, "pose_vae.decode", torch.cat([mu_l + eps_l * torch.exp(0.5 * logvar_l), torso, z_l], 1))
+    return torch.cat([x_g, x_l], 1), mu_g, logvar_g, mu_l, logvar_l

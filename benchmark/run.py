@@ -144,7 +144,9 @@ def execute(bench: Dict, cell: Dict, config: Dict, traffic: Dict, seed: int, sec
     drv = importlib.import_module(f"benchmark.generators.{traffic['generator']}").Generator(run)
     drv.setup()
     setup_s = time.time() - t_start
-    tracer = Tracer(trace, float(traffic.get("trace_seconds", seconds)), device)
+    # without a trace, a cell with an end-to-end metric from the device's trace times the device over its window
+    clock = not trace and any(m.get("source") == "device_trace" for m in cell_metrics(bench, cell["name"], False))
+    tracer = Tracer(trace, float(traffic.get("trace_seconds", seconds)), device, clock=clock)
     with steady():
         e2e, counters = drv.window(seconds, tracer)
     cuda = device.type == "cuda"

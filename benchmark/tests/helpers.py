@@ -1,12 +1,15 @@
-"""Toy sizes of the cells, for the CPU tests: every width cut so that a
-run takes seconds; the SMPL-X joint tree and the snapshot side of the
-native loader (128) are kept."""
+"""Toy sizes of the cells, for the CPU tests: each traffic generator
+(``benchmark/generators/<name>.py``) gives its own, as ``TOY`` (the traffic's
+overrides, a nested group merged key by key) and ``toy_config(cfg)`` (the
+configuration cut to toy widths), so that a run takes seconds."""
 
 from __future__ import annotations
 
 import copy
+import importlib
 import json
 from pathlib import Path
+from typing import Dict
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -20,26 +23,36 @@ def mixes():
     return {w["traffic"]: w["config"] for w in bench()["workloads"]}
 
 
-def config(name: str, image_size: int = 32):
-    cfg = json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text())
-    cfg.update(latentD=32, latentD_g=32, latentD_l=32, image_size=image_size)
-    cfg["body"].update(num_verts=300, n_contact=64)
-    cfg["scenes"].update(sdf_dim=16, scene_points=512)
-    return cfg
+def generator(name: str):
+    """The traffic generator's module."""
+    return importlib.import_module(f"benchmark.generators.{name}")
 
 
-def traffic(name: str, **over):
-    tr = json.loads((ROOT / "benchmark" / "traffic" / f"{name}.json").read_text())
-    small = {"genfit": dict(population=8, num_iter=12, pool=4, trace_seconds=0.5),
-             "train": dict(batch_size=8, samples=64, trace_seconds=0.5)}[tr["generator"]]
-    tr.update(small)
-    if "fit" in tr:
-        tr["fit"] = dict(tr["fit"], prune=128)
-    tr.update(over)
-    return copy.deepcopy(tr)
+def toy_config(cfg: Dict, generator_name: str) -> Dict:
+    """A configuration cut to the toy widths of a generator."""
+    return generator(generator_name).toy_config(copy.deepcopy(cfg))
+
+
+def toy_traffic(tr: Dict, **over) -> Dict:
+    """A traffic mix at its generator's toy sizes, then ``over``."""
+    tr = copy.deepcopy(tr)
+    for k, v in generator(tr["generator"]).TOY.items():
+        tr[k] = dict(tr.get(k, {}), **v) if isinstance(v, dict) else v
+    tr.update(copy.deepcopy(over))
+    return tr
+
+
+def config(name: str, generator_name: str) -> Dict:
+    """The configuration file ``name``, cut for the generator's toy run."""
+    return toy_config(json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text()), generator_name)
+
+
+def traffic(name: str, **over) -> Dict:
+    """The traffic file ``name`` at its generator's toy sizes."""
+    return toy_traffic(json.loads((ROOT / "benchmark" / "traffic" / f"{name}.json").read_text()), **over)
 
 
 def cell_args(cfg_name: str, traffic_name: str, **over):
-    """(config, traffic) of a toy cell; the training cell keeps 128-px snapshots."""
+    """(config, traffic) of a toy cell."""
     tr = traffic(traffic_name, **over)
-    return config(cfg_name, 128 if tr["generator"] == "train" else 32), tr
+    return config(cfg_name, tr["generator"]), tr

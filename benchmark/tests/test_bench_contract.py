@@ -1,10 +1,14 @@
 """BENCHMARK.json against the contract the harness is built to: names,
 units, files found by name, cells, metrics and the check's budget."""
 
+import contextlib
 import importlib
 import json
 import re
 
+import pytest
+
+from benchmark import faults
 from benchmark.run import BENCH_DIR, cell_metrics
 from benchmark.tests.helpers import ROOT, bench
 
@@ -47,6 +51,31 @@ def test_everything_is_found_by_name():
         assert (BENCH_DIR / "metrics" / f"{m['name']}.py").is_file(), m["name"]
     used = {w["config"] for w in b["workloads"]}
     assert used == set(confs)
+
+
+GENERATORS = sorted({json.loads(p.read_text())["generator"] for p in (BENCH_DIR / "traffic").glob("*.json")})
+
+
+@pytest.mark.parametrize("name", GENERATORS)
+def test_every_generator_owns_its_toy_run_and_faults(name):
+    """Every generator that a traffic file names, a cell's or not, gives
+    what the tests and ``faults.plant`` read from it: ``Generator``, its toy
+    traffic (``TOY``) and configuration (``toy_config``), and a planter of
+    each fault that raises on a name it does not know."""
+    mod = importlib.import_module(f"benchmark.generators.{name}")
+    assert hasattr(mod, "Generator") and isinstance(mod.TOY, dict) and callable(mod.toy_config)
+    for fault in faults.NAMES:
+        planted = faults.plant(fault, name)
+        assert isinstance(planted, contextlib.AbstractContextManager), (name, fault)
+    with pytest.raises(ValueError):
+        mod.plant("no_such_fault")
+
+
+def test_plant_raises_for_an_unknown_generator_or_fault():
+    with pytest.raises(ValueError):
+        faults.plant("half_batch", "no_such_generator")
+    with pytest.raises(ValueError):
+        faults.plant("no_such_fault", GENERATORS[0])
 
 
 def test_each_cell_reports_what_its_layers_move():

@@ -43,3 +43,20 @@ def test_call_and_step_operations():
     assert psi.contact_flops(256, 1455, 2048) == 8 * 256 * 1455 * 2048
     step = psi.train_step_flops(cfg, 32, 20000)
     assert 60e9 < step < 90e9
+
+
+def test_s2_step_operations():
+    """Stage 2's step: both trunks (scene features 32 and 128 wide), every
+    linear layer of its two VAEs once forward, the body decode, all three
+    times over, and the contact search."""
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "psi_s2.json").read_text())
+    B = 32
+    trunks = psi.trunk_flops(B, 2, 128, 32, 256) + psi.trunk_flops(B, 2, 128, 128, 256)
+    io = [(3, 256), (512, 512), (512, 512), (512, 512), (512, 512), (512, 32), (512, 32),  # global encoder
+          (288, 32), (32, 32), (32, 32), (32, 32), (32, 32), (32, 3),  # global decoder
+          (72, 256), (3, 256), (768, 768), (768, 768), (768, 768), (768, 768), (768, 32), (768, 32),  # local encoder
+          (544, 128), (128, 128), (128, 128), (128, 128), (128, 128), (128, 72)]  # local decoder
+    mlp = sum(2 * B * i * o for i, o in io)
+    want = 3 * (trunks + mlp + psi.decode_flops(cfg, B)) + 8 * B * 1455 * 20000
+    assert psi.train_step_flops(cfg, B, 20000) == pytest.approx(want, rel=1e-12)
+    assert 130e9 < want < 160e9

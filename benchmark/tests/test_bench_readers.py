@@ -15,7 +15,7 @@ import torch
 
 from benchmark.run import BENCH_DIR, Context, Run, cell_metrics, load_reader
 from benchmark.tests.helpers import ROOT, bench
-from benchmark.trace import TraceView
+from benchmark.trace import Tracer, TraceView, busy_ns
 
 F32 = "device_ms.f32_products.genfit"
 # kernel names as the profiler gave them on the card (traced runs of both genfit cells)
@@ -214,3 +214,37 @@ def test_skinning_roofline_is_a_finite_share():
     assert share == pytest.approx(100 * 20 * 0.046 / 6.0, rel=0.02)
     assert 0 < share <= 100
     assert load_reader("roofline_pct.skinning.genfit")(context(calls("exact"), cell)) is None
+
+
+def test_busy_time_counts_overlaps_once_and_within_the_window():
+    # 10-30 and 20-40 overlap (30 ns once), 50-60 alone; 90-120 is cut at the window's end, 0-5 lies before it
+    spans = [(20, 40), (10, 30), (50, 60), (90, 120), (0, 5)]
+    assert busy_ns(spans, 8, 100) == 30 + 10 + 10
+    assert busy_ns([], 0, 100) == 0
+
+
+def test_the_device_clock_runs_only_on_a_card_and_only_without_a_trace():
+    cpu = torch.device("cpu")
+    for enabled, clock in ((False, True), (True, True), (False, False)):
+        tracer = Tracer(enabled, 1.0, cpu, clock=clock)
+        assert tracer.clock is None
+        tracer.start()
+        tracer.tick(1, force=True)
+        assert tracer.device_busy_s is None
+
+
+def test_steps_a_second_read_the_untraced_rest():
+    cell = {w["name"]: w for w in bench()["workloads"]}["s1_train"]
+    read = load_reader("steps_per_s.train")
+    run = Run(cell, {}, {}, 1, torch.device("cpu"))
+    assert read(Context(None, {"rest_units": 600, "rest_s": 40.0}, run)) == pytest.approx(15.0)
+    assert read(Context(None, {"rest_units": 0, "rest_s": 0.0}, run)) is None
+    assert read(Context(None, {}, run)) is None
+
+
+def test_the_training_cell_times_the_device_end_to_end():
+    b = bench()
+    e2e = {m["name"]: m for m in cell_metrics(b, "s1_train", False)}
+    assert set(e2e) == {"train_device_ms_per_step", "setup_s"}
+    assert e2e["train_device_ms_per_step"]["source"] == "device_trace"
+    assert "steps_per_s.train" in {m["name"] for m in cell_metrics(b, "s1_train", True)}

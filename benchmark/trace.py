@@ -1,6 +1,8 @@
 """The traced part of a window: ``torch.profiler`` over the first
 ``trace_seconds`` of it, read into device activity, kernel time by name,
-launches and idle gaps named by what the host was running."""
+launches and idle gaps named by what the host was running. Without a trace,
+the device's clock: the card's busy seconds over the whole window, from a
+profile of device activity alone."""
 
 from __future__ import annotations
 
@@ -10,22 +12,60 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 
+class DeviceClock:
+    """The card's busy seconds over a stretch of host time: CUPTI's record
+    of every kernel, copy and set (``torch.autograd``'s profiler with the
+    CUDA activity alone, nothing recorded on the host), read once at the end
+    through the profiler's raw events, with none of ``torch.profiler``'s
+    parsing of them."""
+
+    def __init__(self):
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.autograd import ProfilerActivity, ProfilerConfig, ProfilerState
+
+        self.config = ProfilerConfig(ProfilerState.KINETO, False, False, False, False, False, _ExperimentalConfig())
+        self.activities = {ProfilerActivity.CUDA}
+
+    def start(self) -> None:
+        from torch.autograd import _enable_profiler, _prepare_profiler
+
+        _prepare_profiler(self.config, self.activities)
+        _enable_profiler(self.config, self.activities)
+
+    def stop(self, t0: int, t1: int) -> float:
+        """Busy seconds of the device within [t0, t1] (ns), the union of its operations."""
+        from torch.autograd import _disable_profiler
+
+        events = _disable_profiler().events()
+        cpu = torch.autograd.DeviceType.CPU
+        return busy_ns([(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events if e.device_type() != cpu],
+                       t0, t1) / 1e9
+
+
 class Tracer:
     """Started at the window's start; ``tick`` stops it, at a unit's
-    boundary, once ``seconds`` have passed. Off, it does nothing."""
+    boundary, once ``seconds`` have passed. Off, it does nothing, unless
+    ``clock``: then it times the device over the whole window, from
+    ``start`` to the ``tick`` that forces the end, into ``device_busy_s``."""
 
-    def __init__(self, enabled: bool, seconds: float, device):
+    def __init__(self, enabled: bool, seconds: float, device, clock: bool = False):
         self.enabled, self.seconds, self.device = enabled, seconds, device
         self.prof = None
         self.units = 0
         self.stopped: Optional[float] = None  # perf_counter() when the profile stopped
         self.view: Optional["TraceView"] = None
+        self.clock = DeviceClock() if clock and not enabled and device.type == "cuda" else None
+        self.device_busy_s: Optional[float] = None
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def start(self) -> None:
+        if self.clock is not None:
+            self._sync()
+            self.clock.start()
+            self.t0 = time.time_ns()
         if not self.enabled:
             return
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -38,6 +78,10 @@ class Tracer:
 
     def tick(self, units: int, force: bool = False) -> None:
         """Units (calls, steps, program calls) done since the window began."""
+        if self.clock is not None and force:
+            self._sync()
+            self.device_busy_s = self.clock.stop(self.t0, time.time_ns())
+            self.clock = None
         if self.prof is None or self.view is not None:
             return
         if force or (time.time_ns() - self.t0) / 1e9 >= self.seconds:
@@ -65,6 +109,11 @@ def _union(intervals: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
         else:
             out.append((s, e))
     return out
+
+
+def busy_ns(intervals: List[Tuple[int, int]], t0: int, t1: int) -> int:
+    """Nanoseconds of [t0, t1] that the intervals cover, overlaps once."""
+    return sum(e - s for s, e in _union([(max(s, t0), min(e, t1)) for s, e in intervals if min(e, t1) > max(s, t0)]))
 
 
 class TraceView:
