@@ -39,7 +39,16 @@ verts), with random weights made from a seed. Phases, one line each:
               effective TB/s, each of K5's two launches, the bound, the twin
               and the strict-f32 torch call the path ran before; ptxas'
               registers of each product kernel instance, 0 spill bytes
-  6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6 (K4/K5 0),
+ 5c. K6       the einsum decode's per-vertex tail (3x4 apply, transl,
+              extrinsics) at B=256 and 32 on the same bodies: verts and the
+              gradients of T, v_posed and transl within 1e-6 of max |twin|
+              (the einsum chain in float64); two runs equal in bits; device
+              time, effective TB/s and bound of forward and backward beside
+              the strict-f32 cuBLAS chain it replaced; ptxas, 0 spill bytes.
+              Its launches: [slice] 0, [eval] 1 + 0, [train] 1 + 1 a step,
+              [exact] 20 + 20 a replayed 'high' call and 42 + 40 for
+              cli.fitting_proxe --exact
+  6. slice    one generate+fit call: launch counts K1=20, K2=20, K3=6 (K4-K6 0),
               finite bodies, mean loss falling, peak device memory; then
               bodies/s; then one more call, a replay of the fit's CUDA graph
               (the main path from a key's third call on), with the same
@@ -315,6 +324,10 @@ K4_REL_TOL = 2e-6
 #     operand's largest gradient.
 K5_DIFFER_SHARE = 0.01
 K5_ULP_REL = 2.0**-7
+# K6: the twin's einsum chain in float64; the kernel's f32 FMAs a few
+#     roundings off a vertex, its transl gradient a fixed-order f32 sum over
+#     10,475 vertices: of each output's max |twin|.
+K6_REL_TOL = 1e-6
 # cross-device slice, iteration 0: the same bodies through the same math,
 #     sums in another order (the CPU parity test's bound)
 CROSS_LOSS0_REL_TOL = 1e-4
@@ -685,6 +698,96 @@ def check_split(assets, cb, A12, build_log: str) -> dict:
     return out
 
 
+def vtail_ptxas(log_text: str) -> dict:
+    """ptxas' registers and spill bytes of K6's three kernels; raises on a spill."""
+    lines, found = log_text.splitlines(), {}
+    for name in ("vtail_fwd_kernel", "vtail_bwd_kernel", "vtail_reduce_kernel"):
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and name in line:
+                info = " ".join(x.strip() for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x)
+                found[name] = {"ptxas": info, "spill_bytes": sum(int(n) for n in re.findall(r"(\d+) bytes spill", info))}
+    if len(found) != 3 or any(v["spill_bytes"] for v in found.values()):
+        raise AssertionError(f"K6's kernels and their spills: {found}")
+    return found
+
+
+def check_vtail(assets, cb, A12, x72, cam_ext, build_log: str) -> dict:
+    """Phase 5c: K6, the einsum decode's per-vertex tail, against its twin
+    (the einsum chain it replaced, summed here in float64) at B = 256 and 32
+    on real bodies: T from K4's blend of the sampled bodies' A12, v_posed from
+    their shape and pose, their transl and extrinsics, a seeded cotangent.
+    verts and the three gradients within K6_REL_TOL of max |twin|; two runs
+    equal in bits; the device times of K6's forward and backward beside their
+    bounds and beside the same chain in strict-f32 torch (cuBLAS's batched
+    products and the elementwise glue: ``library_ms``, timed here only);
+    ptxas' resources, no spill."""
+    import torch
+
+    from psi_tpu_torch.body.lbs import blend_shapes
+    from psi_tpu_torch.ops import precision as tp
+    from psi_tpu_torch.ops import vertex_tail as vt
+    from psi_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
+
+    smplx = assets.smplx
+    L, P = smplx.shapedirs.shape[-1], smplx.posedirs.shape[0]
+    gen = torch.Generator(device=cb.device).manual_seed(SEED + 6)
+    out = {}
+    for B in (N_BODIES, 32):
+        T12 = tp.split_mm(tp.blend_gemm(smplx.lbs_weights, A12[:B].contiguous()))
+        v = (smplx.v_template[None] + blend_shapes(cb[:B, 1:1 + L], smplx.shapedirs)
+             + (cb[:B, -P:] @ smplx.posedirs).reshape(B, -1, 3)).contiguous()
+        transl, cam = x72[:B, :3].contiguous(), cam_ext[:B].contiguous()
+        g = torch.randn((B, smplx.num_verts, 3), generator=gen, device=cb.device)
+        V = smplx.num_verts
+
+        def run(fn, dtype=torch.float32):
+            with torch.enable_grad():
+                leaves = [x.detach().to(dtype).requires_grad_() for x in (T12, v, transl)]
+                y = fn(*leaves, cam.to(dtype))
+                return [y.detach()] + list(torch.autograd.grad(y, leaves, g.to(dtype)))
+
+        got, again, twin = run(vt.vertex_tail), run(vt.vertex_tail), run(vt.vertex_tail_reference, torch.float64)
+        names = ("verts", "grad_T", "grad_v_posed", "grad_transl")
+        err = {n: (a.double() - b).abs().max().item() for n, a, b in zip(names, got, twin)}
+        rel = {n: err[n] / b.abs().max().item() for n, b in zip(names, twin)}
+        equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[K6] B={B}: max |K6 - twin| / max |twin| " + ", ".join(f"{n} {x:.3e}" for n, x in rel.items())
+            + f" (tol {K6_REL_TOL}); two runs equal in bits: {equal}")
+        if not (max(rel.values()) <= K6_REL_TOL and equal):
+            raise AssertionError(f"[K6] B={B}: K6 disagrees with its twin or is not deterministic: {rel}, {equal}")
+
+        leaves = [x.detach().requires_grad_() for x in (T12, v, transl)]
+
+        def times(fn, backward: bool) -> dict:
+            """fn's forward, or its forward and backward together (a backward runs on its forward's stream, so a
+            CUDA graph captures the two together): ms a call and ms on the device."""
+            def call():
+                if not backward:
+                    return fn(T12, v, transl, cam)
+                with torch.enable_grad():
+                    return torch.autograd.grad(fn(*leaves, cam), leaves, g)
+            return {"ms": cuda_ms(call), "device_ms": cuda_device_ms(call)}
+
+        k6 = [times(vt.vertex_tail, bw) for bw in (False, True)]
+        chain = [times(vt.vertex_tail_reference, bw) for bw in (False, True)]  # the twin: the library call too
+        r = {"B": B, "rel": rel, "max_abs_err": err, "equal_bits": equal}
+        for tag, nbytes, part in (("fwd", 4 * B * V * 18 + 4 * B * 19, lambda x: x[0]),
+                                  ("bwd", 4 * B * V * 33 + 4 * B * 19, lambda x: x[1] - x[0])):
+            r[tag] = {"ms": part([x["ms"] for x in k6]), "device_ms": part([x["device_ms"] for x in k6]),
+                      "plain_ms": part([x["ms"] for x in chain]), "library_ms": part([x["ms"] for x in chain]),
+                      "library_device_ms": part([x["device_ms"] for x in chain]), "bytes": nbytes, **bound(nbytes)}
+        out[f"b{B}"] = r
+        for tag in ("fwd", "bwd"):
+            x = r[tag]
+            log(f"[K6]   {tag} {x['device_ms']:.4f} ms on the device ({x['ms']:.4f} a call), "
+                f"{x['bytes'] / x['device_ms'] / 1e9:.3f} TB/s effective; bound {x['bound_ms']:.4f} ms, {x['bound_by']}: "
+                f"{x['device_ms'] / x['bound_ms']:.2f}x; the cuBLAS chain it replaced {x['library_device_ms']:.4f} ms on "
+                f"the device ({x['library_ms']:.4f} a call, {x['library_device_ms'] / x['device_ms']:.1f}x K6's time)")
+    out["ptxas"] = vtail_ptxas(build_log)
+    log("[K6] ptxas: " + "; ".join(f"{k}: {v['ptxas']}" for k, v in out["ptxas"].items()))
+    return out
+
+
 def check_k2(cb, A12, cam12, bundle, k2_bound: dict):
     import torch
 
@@ -843,15 +946,17 @@ def check_eval(assets, assets_cpu, x72, cam_ext, scene_idx):
 
     from psi_tpu_torch.eval import collision_contact_scores, diversity_metrics
     from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
+    from psi_tpu_torch.ops.vertex_tail import VTAIL_BWD, VTAIL_FWD
 
     t0 = time.time()
-    (nc, ct), split_launches, _, _ = counted((SPLIT_FWD, SPLIT_BWD),
+    (nc, ct), split_launches, _, _ = counted((SPLIT_FWD, SPLIT_BWD, VTAIL_FWD, VTAIL_BWD),
                                              lambda: collision_contact_scores(assets, x72, cam_ext, scene_idx))
     ent, md = diversity_metrics(x72, k=20)
     torch.cuda.synchronize()
     card_s = time.time() - t0
-    # one 'high' decode of the population, no gradient: K4 for the correctives and the blend
-    check_launches("[eval] the collision scorer", split_launches, {SPLIT_FWD.name: 2, SPLIT_BWD.name: 0})
+    # one 'high' decode of the population, no gradient: K4 for the correctives and the blend, K6 for the tail
+    check_launches("[eval] the collision scorer", split_launches,
+                   {SPLIT_FWD.name: 2, SPLIT_BWD.name: 0, VTAIL_FWD.name: 1, VTAIL_BWD.name: 0})
     nc_c, ct_c = collision_contact_scores(assets_cpu, x72.cpu(), cam_ext.cpu(), scene_idx.cpu())
     ent_c, md_c = diversity_metrics(x72.cpu(), k=20)
     log(f"[eval] N={x72.shape[0]} on the card in {card_s:.2f} s: non-collision {nc:.6f} (CPU {nc_c:.6f}, "
@@ -913,6 +1018,7 @@ def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Pat
     from psi_tpu_torch.data.synthetic import SyntheticBatchGenerator
     from psi_tpu_torch.ops.chamfer import NN_ARGMIN
     from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
+    from psi_tpu_torch.ops.vertex_tail import VTAIL_BWD, VTAIL_FWD
     from psi_tpu_torch.train.loop import TrainOP, _stage_chunk, init_state, make_train_step
     from psi_tpu_torch.utils.config import LossConfig, TrainConfig
 
@@ -947,13 +1053,14 @@ def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Pat
 
     op.epoch_fn = timed
     torch.cuda.synchronize()
-    for k in (NN_ARGMIN, SPLIT_FWD, SPLIT_BWD):
+    for k in (NN_ARGMIN, SPLIT_FWD, SPLIT_BWD, VTAIL_FWD, VTAIL_BWD):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     last = op.train(batches(half))
     torch.cuda.synchronize()
     k3_launches = NN_ARGMIN.launches
     split_launches = {k.name: k.launches for k in (SPLIT_FWD, SPLIT_BWD)}
+    vtail_launches = {k.name: k.launches for k in (VTAIL_FWD, VTAIL_BWD)}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     rows = read_metrics(run_dir)
     names = {"loss", "rec_t", "rec_p", "vposer", "contact", "collision", "kl"} | (
@@ -972,13 +1079,17 @@ def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Pat
     # a step decodes its bodies once at 'high': K4 for the correctives and the blend, K5 for their gradients
     check_launches(f"{tag} K4/K5 in {TRAIN_STEPS} steps", split_launches,
                    {SPLIT_FWD.name: 2 * TRAIN_STEPS, SPLIT_BWD.name: 2 * TRAIN_STEPS})
+    # ... and K6 once each way for its per-vertex tail
+    check_launches(f"{tag} K6 in {TRAIN_STEPS} steps", vtail_launches,
+                   {VTAIL_FWD.name: TRAIN_STEPS, VTAIL_BWD.name: TRAIN_STEPS})
     moved = [k for k, v in op.model.state_dict().items() if k in stats0 and not torch.equal(v, stats0[k])]
     if len(moved) != len(stats0):
         raise AssertionError(f"{tag} {len(stats0) - len(moved)} running statistics did not move")
     median_ms = statistics.median(step_ms[1:])
     log(f"{tag} TrainOP on the card, batch {cfg.batch_size}, gates open (epochs 8 and 9 of 9): {TRAIN_STEPS} steps, every "
         f"metric finite; loss {rows[0]['loss']:.6f} -> {rows[-1]['loss']:.6f}; contact > 0 in all, collision > 0 in "
-        f"{n_collision}; K3 launches {k3_launches} at M={M} (one per step), K4/K5 {split_launches}; {len(moved)} "
+        f"{n_collision}; K3 launches {k3_launches} at M={M} (one per step), K4/K5 {split_launches}, K6 {vtail_launches}; "
+        f"{len(moved)} "
         f"running statistics moved; "
         f"first step {step_ms[0]:.1f} ms, then {', '.join(f'{t:.2f}' for t in step_ms[1:])} ms: median "
         f"{median_ms:.3f} ms a step ({1e3 / median_ms:.2f} steps/s); peak device memory {peak_gb:.4f} GB; on {smi}")
@@ -1056,7 +1167,7 @@ def check_train(model_type: str, dev, assets, assets_cpu, smi: str, workdir: Pat
         raise AssertionError(f"{tag} card and CPU disagree: metrics {metric_rel}, gradients median {grad_median}, "
                              f"largest {grad_rel[worst]} at {worst}")
     return {"step_ms": step_ms, "median_step_ms": median_ms, "peak_gb": peak_gb, "k3_launches": k3_launches,
-            "split_launches": split_launches,
+            "split_launches": split_launches, "vtail_launches": vtail_launches,
             "steps": TRAIN_STEPS, "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
             "collision_steps": n_collision, "resume_rel": resume_rel, "resume_later_rel": later_rel,
             "repeat_losses": losses, "cross_metric_rel": metric_rel, "cross_grad_rel": grad_rel[worst],
@@ -1128,10 +1239,10 @@ def counted(kernels, fn):
     return out, {k.name: k.launches for k in kernels}, wall, torch.cuda.max_memory_allocated() / 1e9
 
 
-# the device kernels of csrc/ that K1-K5 launch (their packs and reductions too): a trace's names hold them
+# the device kernels of csrc/ that K1-K6 launch (their packs and reductions too): a trace's names hold them
 HAND_WRITTEN = ("skin_fwd_kernel", "skin_pack_kernel", "skin_bwd_coef_kernel", "splitk_gemm_kernel",
                 "reduce_tiles_kernel", "nn_argmin_kernel", "split_wgmma_kernel", "split_reduce_kernel",
-                "split_pack_kernel")
+                "split_pack_kernel", "vtail_fwd_kernel", "vtail_bwd_kernel", "vtail_reduce_kernel")
 
 
 def hand_written_on_device(fn):
@@ -1166,9 +1277,9 @@ def check_replayed(tag: str, run, kernels, fn, want: dict) -> dict:
     return {"wall_s": wall, "launches": launches, "graph_stats": after}
 
 
-def want_launches(kernels, k1: int, k2: int, k3: int, k4: int = 0, k5: int = 0) -> dict:
-    """K1..K5's wanted counts, for as many of them as ``kernels`` names."""
-    return dict(zip((k.name for k in kernels), (k1, k2, k3, k4, k5)))
+def want_launches(kernels, k1: int, k2: int, k3: int, k4: int = 0, k5: int = 0, *k6: int) -> dict:
+    """K1..K5's wanted counts, and K6's (forward, backward) where given, for as many of them as ``kernels`` names."""
+    return dict(zip((k.name for k in kernels), (k1, k2, k3, k4, k5, *k6)))
 
 
 def check_launches(tag: str, got: dict, want: dict) -> None:
@@ -2799,6 +2910,7 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
     from psi_tpu_torch.fit.fitting import FittingOP, make_fit_step
     from psi_tpu_torch.gen.sample import TestOP
     from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
+    from psi_tpu_torch.ops.vertex_tail import VTAIL_BWD, VTAIL_FWD
     from psi_tpu_torch.scripts import profile_fused, profile_refresh_cadence, profile_segments
     from psi_tpu_torch.scripts.profile_fit import _device_us, device_events
     from psi_tpu_torch.utils.config import FitConfig
@@ -2806,7 +2918,8 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
     t_phase = time.time()
     out = {}
     assets_f32 = profile_fused.bench_assets(dev)
-    kernels = tuple(kernels) + (SPLIT_FWD, SPLIT_BWD)  # the 'high' tier's K4 and K5 beside K1-K3
+    # the 'high' tier's K4 and K5 beside K1-K3, then K6 (counted where a run counts every one of them)
+    kernels = tuple(kernels) + (SPLIT_FWD, SPLIT_BWD, VTAIL_FWD, VTAIL_BWD)
     per_call = 2 * NUM_ITER  # at 'high' a pass launches K4 for the correctives and the blend, K5 for their gradients
 
     # ---- profile_fused's six variants, launches asserted
@@ -2874,7 +2987,7 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
         profiled.append(hand_written_on_device(lambda: fit(xs[2], cam_b, sidx_b)))
 
     out["replayed"] = check_replayed("[exact] exact_high", fit, kernels, profiled_replay,
-                                     want_launches(kernels, 0, 0, NUM_ITER, per_call, per_call))
+                                     want_launches(kernels, 0, 0, NUM_ITER, per_call, per_call, NUM_ITER, NUM_ITER))
     ((_, prof, replay_on_device),) = profiled
     out["replayed"]["on_device"] = replay_on_device
     log(f"[exact] hand-written kernels on the device: eager call {eager_on_device}; replayed call {replay_on_device}")
@@ -2935,9 +3048,9 @@ def check_exact(dev, model, assets, batch, x72_pre, cam_ext, kernels, smi: str, 
     _, direct_launches, direct_s, _ = counted(kernels, fit_directly)
     fitted = read_pickles(fit_dir)
     equal = same_bits_records(fitted, read_pickles(direct))
-    # a chunk a scene: 20 passes and the final metrics pass (K4 twice, no gradient)
+    # a chunk a scene: 20 passes and the final metrics pass (K4 twice and K6 once, no gradient)
     want = want_launches(kernels, 0, 0, len(scenes) * (NUM_ITER + 1), len(scenes) * (per_call + 2),
-                         len(scenes) * per_call)
+                         len(scenes) * per_call, len(scenes) * (NUM_ITER + 1), len(scenes) * NUM_ITER)
     finite = all(np.isfinite(v).all() for r in fitted.values() for v in r.values())
     banner = buf.getvalue().strip().splitlines()
     out["cli_fitting_proxe_exact"] = {"launches": cli_launches, "wall_s": cli_s, "direct_launches": direct_launches,
@@ -3048,6 +3161,7 @@ def smoke(dev) -> None:
     from psi_tpu_torch.ops.gather_probes import KERNELS as PROBES
     from psi_tpu_torch.ops.precision import SPLIT_BWD, SPLIT_FWD
     from psi_tpu_torch.ops.prune import select_near_tiles
+    from psi_tpu_torch.ops.vertex_tail import VTAIL_BWD, VTAIL_FWD
     from psi_tpu_torch.body.smplx_model import make_fused_bundle
     from psi_tpu_torch.utils.config import FitConfig
     from psi_tpu_torch.utils.init import seeded_init_
@@ -3105,13 +3219,15 @@ def smoke(dev) -> None:
         k3 = check_k3(contact, y_pruned, y_full)
         path_batches = check_path_batches(cb, A12, cam12, bundle, contact, y_pruned)
         split = check_split(assets, cb, A12, build_log)
+        vtail = check_vtail(assets, cb, A12, x72_pre, cam_ext, build_log)
 
     # ---- 6. the slice: one production generate+fit call through the kernels
     cfg = FitConfig.production(num_iter=NUM_ITER)
     run = make_generate_fit_step(model, assets, cfg, N_BODIES, want_metrics=False)
     kernels = (SKIN_FWD, SKIN_BWD, NN_ARGMIN)
     torch.cuda.synchronize()
-    for k in kernels + (SPLIT_FWD, SPLIT_BWD):
+    high_only = (SPLIT_FWD, SPLIT_BWD, VTAIL_FWD, VTAIL_BWD)  # K4-K6: the einsum tiers' kernels
+    for k in kernels + high_only:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -3121,9 +3237,9 @@ def smoke(dev) -> None:
     first_s = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches = {k.name: k.launches for k in kernels}
-    launches_split = {k.name: k.launches for k in (SPLIT_FWD, SPLIT_BWD)}
-    check_launches("[slice] K4/K5 (the production fit decodes at 'fused')", launches_split,
-                   {SPLIT_FWD.name: 0, SPLIT_BWD.name: 0})
+    launches_split = {k.name: k.launches for k in high_only}
+    check_launches("[slice] K4-K6 (the production fit decodes at 'fused')", launches_split,
+                   {k.name: 0 for k in high_only})
     want = {SKIN_FWD.name: NUM_ITER, SKIN_BWD.name: NUM_ITER, NN_ARGMIN.name: 6}
     loss0, loss_last = hist[0].mean().item(), hist[-1].mean().item()
     log(f"[slice] first call {first_s:.2f} s; launches {launches} (want {want}); "
@@ -3145,10 +3261,10 @@ def smoke(dev) -> None:
     log(f"[slice] generate+fit N={N_BODIES}, {NUM_ITER} iters: median {wall:.4f} s of {len(walls)} "
         f"({walls[0]:.4f}, {walls[1]:.4f}, {walls[2]:.4f}) -> {N_BODIES / wall:.2f} bodies/s on {smi}")
     replayed = check_replayed(
-        "[slice]", run, kernels + (SPLIT_FWD, SPLIT_BWD),
+        "[slice]", run, kernels + high_only,
         lambda: run(xs, cam_int, max_d, cam_ext, scene_idx,
                     generator=torch.Generator(device=dev).manual_seed(SEED + 13)),
-        {**want, SPLIT_FWD.name: 0, SPLIT_BWD.name: 0})
+        {**want, **{k.name: 0 for k in high_only}})
 
     # ---- 7. the same slice on the CPU (twins) and on the card (kernels)
     t0 = time.time()
@@ -3272,12 +3388,16 @@ def smoke(dev) -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # ---- the record: each kernel with the launch count of its path's run (K4/K5: the exact tier at 'high')
+    # ---- the record: each kernel with the launch count of its path's run (K4-K6: the exact tier at 'high')
     results = [(SKIN_FWD, k1, launches), (SKIN_BWD, k2, launches), (NN_ARGMIN, k3["pruned"], launches)]
     exact_high = exact["variants"]["exact_high"]["launches"]
     split_main = split[f"correctives_b{N_BODIES}"]
     results += [(SPLIT_FWD, {**split_main["k4"], "max_abs_err": split_main["fwd_max_abs"]}, exact_high),
                 (SPLIT_BWD, {**split_main["k5"], "max_abs_err": split_main["grad_max_abs"]}, exact_high)]
+    vt_main, exact_replayed = vtail[f"b{N_BODIES}"], exact["replayed"]["launches"]
+    results += [(VTAIL_FWD, {**vt_main["fwd"], "max_abs_err": vt_main["max_abs_err"]["verts"]}, exact_replayed),
+                (VTAIL_BWD, {**vt_main["bwd"], "max_abs_err": max(v for n, v in vt_main["max_abs_err"].items()
+                                                                  if n != "verts")}, exact_replayed)]
     results += [(k, probes[k.name], probe_launches) for k in PROBES]
     rows = [{"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": counts[k.name], "max_abs_err": res["max_abs_err"],
@@ -3318,11 +3438,19 @@ def smoke(dev) -> None:
             "vposer_evaluate_and_train": vposer["split_launches_training"][k.name],
             "vposer_untangle": vposer["split_launches_untangle"][k.name], "eval_scorer": scores["split_launches"][k.name],
             "generate_fit_s1": launches_split[k.name]}
+    # K6 on the exact tier's replayed call, the exact CLI, training and the production slice
+    for row, k in zip(rows[5:7], (VTAIL_FWD, VTAIL_BWD)):
+        row["launches_by_path"] = {
+            "exact_high_replayed": exact["replayed"]["launches"][k.name],
+            "cli_fitting_proxe_exact": exact["cli_fitting_proxe_exact"]["launches"][k.name],
+            "train_s1_6_steps": train["s1"]["vtail_launches"][k.name],
+            "train_s2_6_steps": train["s2"]["vtail_launches"][k.name], "eval_scorer": scores["split_launches"][k.name],
+            "generate_fit_s1": launches_split[k.name]}
     log(json.dumps({"slice": {"bodies_per_s": N_BODIES / wall, "wall_s": wall, "walls_s": walls,
                               "peak_gb": peak_gb, "replayed": replayed},
                     "k1": {"stage_ms": k1["stage_ms"]},
                     "k2": {"stage_ms": k2["stage_ms"], "rel_err": k2["rel_err"]}, "hmma": hmma,
-                    "split_hgmma": split_hgmma, "k4_k5": split,
+                    "split_hgmma": split_hgmma, "k4_k5": split, "k6": vtail,
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,

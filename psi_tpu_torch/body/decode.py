@@ -13,7 +13,6 @@ import torch
 from psi_tpu_torch.body.smplx_model import SMPLXModel, smplx_forward, smplx_forward_fused
 from psi_tpu_torch.body.vposer import VPoser, vposer_decode
 from psi_tpu_torch.geometry.bodyvec import body_params_encapsulate
-from psi_tpu_torch.geometry.camera import verts_transform
 from psi_tpu_torch.ops.fused_skinning import SkinningBundle
 
 
@@ -53,7 +52,7 @@ def body_vec_to_verts(
             cam_ext=cam_ext,
             bundle=fused_bundle,
         )
-    verts, joints = smplx_forward(
+    return smplx_forward(
         smplx,
         transl=p["transl"],
         global_orient=p["global_orient"],
@@ -63,8 +62,5 @@ def body_vec_to_verts(
         right_hand_pose=p["right_hand_pose"],
         precision=precision,
         joints_direct=joints_direct,
+        cam_ext=cam_ext,
     )
-    if cam_ext is not None:
-        verts = verts_transform(verts, cam_ext)
-        joints = verts_transform(joints, cam_ext)
-    return verts, joints

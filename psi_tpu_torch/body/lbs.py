@@ -17,6 +17,9 @@ Precision tiers, psi_tpu's:
   correctives, skinning blend) take bf16-rounded operands with float32
   accumulation, the numerics of psi_tpu's 'fast' tier on the TPU.
 ``exact=True`` takes every contraction to plain float32 on either tier.
+On every tier the per-vertex tail (the blended 3x4 applied to each vertex,
+then the body's translation and the camera extrinsics when given) is
+``ops.vertex_tail``: float32, kernel K6 on the card.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from psi_tpu_torch.geometry.camera import verts_transform
 from psi_tpu_torch.geometry.rot6d import aa_to_matrix
 from psi_tpu_torch.ops.precision import einsum_f32x3, matmul_f32x3
+from psi_tpu_torch.ops.vertex_tail import vertex_tail
 
 PRECISIONS = ("high", "fast")
 
@@ -132,6 +137,8 @@ def lbs(
     exact: bool = False,
     precision: str = "high",
     joints_direct: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    transl: Optional[torch.Tensor] = None,
+    cam_ext: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full LBS forward -> (verts [B, V, 3], joints [B, J, 3]).
 
@@ -142,6 +149,9 @@ def lbs(
     j_shapedirs) pair of ``joint_regressor_direct``; the joints then come
     from betas directly, in f32 on every tier. Required when the per-vertex
     tensors are a vertex subset of the model (J_regressor is then unused).
+    transl [B, 3], cam_ext [B, 4, 4] (no gradient): when given, verts and
+    joints are moved by transl, then through the extrinsics
+    (``verts_transform``); the verts in the same pass as the skinning apply.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"lbs precision must be one of {PRECISIONS}, got {precision!r}")
@@ -183,6 +193,13 @@ def lbs(
         T = torch.einsum("vj,bjz->bvz", _bf16(lbs_weights), _bf16(A12))
     else:
         T = einsum_f32x3("vj,bjz->bvz", lbs_weights, A12, a_axis=1, b_axis=1)
-    T34 = T.reshape(B, -1, 3, 4)
-    verts = torch.einsum("bvxy,bvy->bvx", T34[..., :3], v_posed) + T34[..., 3]
+    if T.is_cuda:  # K6 takes contiguous operands: the 'fast' and exact blends lay T out [V, B, 12]
+        T, v_posed = T.contiguous(), v_posed.contiguous()
+        transl = None if transl is None else transl.contiguous()
+        cam_ext = None if cam_ext is None else cam_ext.contiguous()
+    verts = vertex_tail(T, v_posed, transl, cam_ext)
+    if transl is not None:
+        posed_joints = posed_joints + transl[:, None, :]
+    if cam_ext is not None:
+        posed_joints = verts_transform(posed_joints, cam_ext)
     return verts, posed_joints

@@ -273,19 +273,21 @@ def smplx_forward(
     reye_pose: Optional[torch.Tensor] = None,
     precision: str = "high",
     joints_direct: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cam_ext: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SMPL-X forward: body params -> (vertices [B, V, 3], joints [B, J, 3]).
-    joints_direct: see ``lbs``; required for a ``smplx_vertex_subset`` model."""
+    joints_direct: see ``lbs``; required for a ``smplx_vertex_subset`` model.
+    cam_ext [B, 4, 4] (no gradient): when given, both are returned through
+    ``verts_transform(., cam_ext)``."""
     full_pose, shape_coeffs, shapedirs = _assemble_pose_shape(
         model, global_orient, body_pose, betas,
         left_hand_pose, right_hand_pose, expression, jaw_pose, leye_pose, reye_pose,
     )
-    verts, joints = lbs(
+    return lbs(
         shape_coeffs, full_pose, model.v_template, shapedirs, model.posedirs,
         model.J_regressor, model.parents, model.lbs_weights, precision=precision,
-        joints_direct=joints_direct,
+        joints_direct=joints_direct, transl=transl, cam_ext=cam_ext,
     )
-    return verts + transl[:, None, :], joints + transl[:, None, :]
 
 
 def make_fused_bundle(model: SMPLXModel) -> SkinningBundle:

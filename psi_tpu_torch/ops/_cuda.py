@@ -70,9 +70,12 @@ SIGNATURES: Dict[str, List] = {
     "psi_split_mm": [_P] * 3 + [_I] * 8 + [_L] * 6 + [_I] + [_L] * 4 + [_I, _P],
     "psi_split_mm_grad_workspace": [_I] * 6,
     "psi_split_mm_grad": [_P] * 4 + [_I] * 8 + [_L] * 6 + [_I] + [_L] * 4 + [_I, _I, _P],
+    "psi_vtail_fwd": [_P] * 5 + [_I] * 2 + [_P],
+    "psi_vtail_bwd_workspace": [_I] * 2,
+    "psi_vtail_bwd": [_P] * 8 + [_I] * 2 + [_P],
 }
 RESTYPES = {"psi_skin_fwd_workspace": ctypes.c_size_t, "psi_skin_bwd_workspace": ctypes.c_size_t,
-            "psi_split_mm_grad_workspace": ctypes.c_size_t}
+            "psi_split_mm_grad_workspace": ctypes.c_size_t, "psi_vtail_bwd_workspace": ctypes.c_size_t}
 
 _library: Optional[ctypes.CDLL] = None
 KERNELS: List["Kernel"] = []  # every Kernel made, in the order made

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3 and P1-P4 against their plain twins, on the card.
+"""The CUDA kernels K1-K3, K6 and P1-P4 against their plain twins, on the card.
 
 Every test here needs an NVIDIA card and skips without one: the kernels
 have no CPU mode, and their twins' agreement with psi_tpu is checked on
@@ -959,3 +959,147 @@ def test_pack_matches_its_twin_and_the_cache_follows_its_source(card):
     assert tp.SPLIT_PACK.launches == n + 2 and torch.equal(second, 2.0 * first)
     del pd
     assert tp.PACKS.nbytes() == 0
+
+
+# ---- K6: the einsum decode's per-vertex tail (ops/vertex_tail.py)
+
+# (B, V): the exact fit's population, a training batch, one body; all at
+# SMPL-X's 10,475 vertices (no multiple of the kernel's 256-vertex block)
+VTAIL_SHAPES = [(256, 10475), (32, 10475), (1, 10475)]
+VTAIL_REL_TOL = 1e-6  # of max |twin|: f32 FMAs against the twin summed in float64
+
+
+def _vtail_case(B, V, dev, seed=0):
+    """(T12, v_posed, transl, cam_ext, cotangent) on ``dev``, T12 blended-
+    transform-like (rotation-sized 3x3, metre-sized translation column)."""
+    rng = np.random.default_rng(seed)
+    T = rng.normal(0, 0.3, (B, V, 3, 4))
+    T[..., :3] += np.eye(3)
+    cam = np.tile(np.eye(4), (B, 1, 1))
+    th = rng.normal(0, 0.3, B)
+    cam[:, 0, 0], cam[:, 0, 2], cam[:, 2, 0], cam[:, 2, 2] = np.cos(th), np.sin(th), -np.sin(th), np.cos(th)
+    cam[:, :3, 3] = rng.normal(0, 2.0, (B, 3))
+    arrays = (T.reshape(B, V, 12), rng.normal(0, 0.5, (B, V, 3)), rng.normal(0, 1.0, (B, 3)), cam,
+              rng.normal(0, 1.0, (B, V, 3)))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+def _vtail_run(fn, T12, v, transl, cam, g):
+    """fn's output and its gradients to T12, v_posed and transl for cotangent g."""
+    leaves = [x.detach().clone().requires_grad_() for x in (T12, v, transl)]
+    out = fn(*leaves, cam)
+    out.backward(g)
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+def _vtail_twin64(T12, v, transl, cam, g):
+    from psi_tpu_torch.ops import vertex_tail as vt
+
+    d = [x.double() for x in (T12, v, transl, g)]
+    return _vtail_run(vt.vertex_tail_reference, d[0], d[1], d[2], None if cam is None else cam.double(), d[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", VTAIL_SHAPES)
+@pytest.mark.parametrize("with_cam", [True, False])
+def test_k6_forward_and_backward_match_twin(shape, with_cam, card):
+    """verts, grad_T, grad_v_posed and grad_transl within 1e-6 of max |twin|
+    (the twin's einsum chain in float64 on the card); one K6 launch forward
+    and one backward."""
+    from psi_tpu_torch.ops import vertex_tail as vt
+
+    T12, v, transl, cam, g = _vtail_case(*shape, card)
+    cam = cam if with_cam else None
+    f0, b0 = vt.VTAIL_FWD.launches, vt.VTAIL_BWD.launches
+    got = _vtail_run(vt.vertex_tail, T12, v, transl, cam, g)
+    torch.cuda.synchronize()
+    assert (vt.VTAIL_FWD.launches - f0, vt.VTAIL_BWD.launches - b0) == (1, 1)
+    for name, a, b in zip(("verts", "grad_T", "grad_v_posed", "grad_transl"), got, _vtail_twin64(T12, v, transl, cam, g)):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        err = (a.double() - b).abs().max().item()
+        assert err <= VTAIL_REL_TOL * b.abs().max().item(), (name, err, b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_k6_two_runs_give_equal_bits(card):
+    from psi_tpu_torch.ops import vertex_tail as vt
+
+    case = _vtail_case(256, 10475, card, seed=1)
+    first = _vtail_run(vt.vertex_tail, *case)
+    second = _vtail_run(vt.vertex_tail, *case)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k6_captures_into_a_cuda_graph_and_replays(card):
+    """Forward and backward captured into one CUDA graph: a replay on new
+    inputs copied into the static tensors gives the eager call's bits."""
+    from psi_tpu_torch.ops import vertex_tail as vt
+
+    T12, v, transl, cam, g = _vtail_case(32, 10475, card, seed=2)
+    static = [x.clone() for x in (T12, v, transl, cam, g)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        _vtail_run(vt.vertex_tail, *static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    captured = vt.VTAIL_FWD.captured, vt.VTAIL_BWD.captured
+    with torch.cuda.graph(graph):
+        outs = _vtail_run(vt.vertex_tail, *static)
+    assert (vt.VTAIL_FWD.captured - captured[0], vt.VTAIL_BWD.captured - captured[1]) == (1, 1)
+    fresh = _vtail_case(32, 10475, card, seed=3)
+    for s, x in zip(static, fresh):
+        s.copy_(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(outs, _vtail_run(vt.vertex_tail, *fresh)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k6_rejects_operands_it_does_not_take(card):
+    """bf16 operands, non-contiguous operands, a T12 off 16-byte alignment and
+    a cam_ext that requires a gradient all raise; nothing falls back."""
+    from psi_tpu_torch.ops import vertex_tail as vt
+
+    T12, v, transl, cam, _ = _vtail_case(3, 300, card)
+    with pytest.raises(TypeError):
+        vt.vertex_tail(T12.bfloat16(), v, transl, cam)
+    with pytest.raises(TypeError):
+        vt.vertex_tail(T12, v.bfloat16(), transl, cam)
+    with pytest.raises(ValueError, match="contiguous"):
+        vt.vertex_tail(T12.transpose(0, 1).contiguous().transpose(0, 1), v, transl, cam)
+    with pytest.raises(ValueError, match="contiguous"):
+        vt.vertex_tail(T12, v, torch.cat([transl, transl], 1)[:, :3], cam)
+    with pytest.raises(ValueError, match="aligned"):
+        vt.vertex_tail(torch.cat([T12.reshape(-1), T12.reshape(-1)[:1]])[1:].reshape(T12.shape), v, transl, cam)
+    with pytest.raises(ValueError, match="gradient"):
+        vt.vertex_tail(T12, v, transl, cam.clone().requires_grad_())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "fast"])
+def test_decode_on_the_card_runs_k6_once_each_way(precision, card):
+    """body_vec_to_verts with extrinsics on the card: one K6 launch forward
+    and one backward, verts within 1e-4 m of the CPU's (its twin)."""
+    from psi_tpu_torch.body.decode import body_vec_to_verts
+    from psi_tpu_torch.body.smplx_model import synthetic_smplx
+    from psi_tpu_torch.body.vposer import synthetic_vposer
+    from psi_tpu_torch.ops import vertex_tail as vt
+
+    smplx, vposer = synthetic_smplx(num_verts=2051, num_joints=55, seed=0), synthetic_vposer(seed=0)
+    rng = np.random.default_rng(5)
+    x72 = torch.from_numpy((rng.normal(size=(13, 72)) * 0.3).astype(np.float32))
+    cam = _vtail_case(13, 1, "cpu")[3]
+    cpu = body_vec_to_verts(smplx, vposer, x72, cam, precision=precision)[0]
+    f0, b0 = vt.VTAIL_FWD.launches, vt.VTAIL_BWD.launches
+    x = x72.to(card).requires_grad_()
+    verts = body_vec_to_verts(smplx.to(card), vposer.to(card), x, cam.to(card), precision=precision)[0]
+    verts.sum().backward()
+    torch.cuda.synchronize()
+    assert (vt.VTAIL_FWD.launches - f0, vt.VTAIL_BWD.launches - b0) == (1, 1)
+    assert torch.isfinite(x.grad).all()
+    tol = 1e-4 if precision == "high" else 2.5e-2
+    assert (verts.detach().cpu() - cpu).abs().max().item() <= tol
