@@ -25,8 +25,8 @@ verts), with random weights made from a seed. Phases, one line each:
               the two-sided chamfer's swapped shape (the pruned cloud's
               points against the contact vertices); int64 indices, two runs
               equal; beside the bound, the issue floor of the exact formula.
-              Then K1, K2 and K3 vs their twins at the other body counts of
-              phases 13-14 (128, 64, 4 and 1), full width, untimed
+              Then K1, K2 and K3 vs their twins at other body counts (128,
+              64, and the carried-Adam mode's 4 and 1), full width, untimed
  5b. K4/K5    the 'high' LBS tier's split-bf16 products on phase 6's sampled
               bodies: the pose correctives [B, 486] @ posedirs [486, 31425]
               at B=256 and 32 and the blend w [10475, 55] . A12 [B, 55, 12]
@@ -99,7 +99,7 @@ and then the training path and the Stage-2 sampler:
               sampler: launch counts 20/20/6, finite bodies, falling loss;
               two calls more, the second a replay with 20/20/6 asserted
 
- and then the file-driven path and the fit's off-by-default knobs:
+ and then the file-driven path and the fit's other entry points:
 
  13. drivers  in a temporary directory: TestOP (on the card by default)
               writes 300 body_gen_*.pkl for phase 6's snapshot; FittingOP
@@ -114,15 +114,10 @@ and then the training path and the Stage-2 sampler:
               the rows are). The fitted files scored by
               collision_contact_scores and diversity_metrics. Seconds for
               write, fit and read-back.
- 14. knobs    N=256 from phase 6's bodies, each with launch counts
-              asserted and its wall time: cheap_collision_verts=2048 (mean
-              loss falls; final full-vertex metrics beside the default's),
-              overlap_chunks=2 (each half equal in bits to the one-chunk
-              fit of its 128 bodies alone; difference to one chunk of 256:
-              iteration 0 to 1e-4, the fitted bodies' mean held to twice the
-              default's own drift for an input moved by 1e-6, measured
-              here), remat_decode (equal bits,
-              K1 twice a pass, peak memory of both),
+ 14. paths    N=256 from phase 6's bodies, each with launch counts
+              asserted and its wall time: the default fit with its final
+              metrics, and its own drift for an input moved by 1e-6 (the
+              yardstick phase 18 holds the sharded fit to);
               make_generate_fit_rows (4 snapshots x 64 rows, each group in
               its own scene) and the carried-Adam mode at N=4 (serial:
               N x 20 passes at one body).
@@ -882,22 +877,19 @@ def check_k3(contact, y_pruned, y_full):
 
 
 def check_path_batches(cb, A12, cam12, bundle, contact, y_pruned):
-    """K1, K2 and K3 against their twins at the other body counts that phases
-    13 and 14 give them, at full width: overlap_chunks=2 runs every pass at
-    N/2 bodies, the vertex subset's scoring decode launches K1 at
-    fit.fitting.N_SCORE bodies, and the carried-Adam mode runs its passes at
-    one body and its metrics pass at N_CARRY. Slices of phase 3-5's operands, the same
-    tolerances, no timing."""
+    """K1, K2 and K3 against their twins at other body counts than phase 6's,
+    at full width: half the population, TWO_BODY_TILES, and the carried-Adam
+    mode's, which runs its passes at one body and its metrics pass at
+    N_CARRY. Slices of phase 3-5's operands, the same tolerances, no timing."""
     import torch
 
-    from psi_tpu_torch.fit.fitting import N_SCORE
     from psi_tpu_torch.ops.chamfer import nn_argmin, nn_argmin_reference
     from psi_tpu_torch.ops.fused_skinning import (fused_skinning_bwd, fused_skinning_bwd_reference,
                                                   fused_skinning_fwd, fused_skinning_fwd_reference)
 
     out = {}
     g_all = torch.randn((cb.shape[0], bundle.n_verts, 3), generator=torch.Generator().manual_seed(SEED + 4)).to(cb.device)
-    for B in (cb.shape[0] // 2, N_SCORE, N_CARRY, 1):
+    for B in (cb.shape[0] // 2, TWO_BODY_TILES, N_CARRY, 1):
         ops = (cb[:B].contiguous(), A12[:B].contiguous(), cam12[:B].contiguous(), bundle)
         g, x, y = g_all[:B].contiguous(), contact[:B].contiguous(), y_pruned[:B].contiguous()
         k1_err = (fused_skinning_fwd(*ops) - fused_skinning_fwd_reference(*ops)).abs().max().item()
@@ -1219,7 +1211,7 @@ def check_s2_slice(dev, assets, xs, cam_int, max_d, scene_idx, kernels, want):
 
 N_FILES = 300  # TestOP's default n_samples, the reference's per-scene population
 MAX_POPULATION = 256
-CHEAP_VERTS = 2048
+TWO_BODY_TILES = 64  # bodies: two of K1's 32-body tiles
 N_CARRY = 4  # bodies of the carried-Adam run: it is serial, N x NUM_ITER passes at batch 1
 ROWS_SNAPSHOTS = 4
 
@@ -1390,9 +1382,9 @@ def check_drivers(dev, model, assets, batch, cam_ext, kernels, smi: str):
             "entropy": ent, "mean_dist": md}
 
 
-def check_knobs(dev, model, assets, x72_init, cam_ext, scene_idx, kernels, sens_max: float, smi: str):
-    """Phase 14: the three FitConfig knobs, make_generate_fit_rows and the
-    carried-Adam mode, from phase 6's bodies. ``sens_max`` is phase 7's
+def check_fit_paths(dev, model, assets, x72_init, cam_ext, scene_idx, kernels, sens_max: float, smi: str):
+    """Phase 14: the default fit and its own drift, make_generate_fit_rows and
+    the carried-Adam mode, from phase 6's bodies. ``sens_max`` is phase 7's
     measured sensitivity of a fitted coordinate to a 1e-6 change of the latents."""
     import torch
 
@@ -1409,35 +1401,16 @@ def check_knobs(dev, model, assets, x72_init, cam_ext, scene_idx, kernels, sens_
     args = (x72_init, cam_ext, scene_idx)
     out = {}
 
-    def run(tag, cfg, want):
-        fit = make_fit_step(assets, cfg)
-        fit(*args)  # warm: the first call of a shape pays cuBLAS' and the allocator's set-up
-        (x, m, h), launches, wall, peak = counted(kernels, lambda: fit(*args))
-        check_launches(f"[knobs] {tag}", launches, want)
-        if x.shape != (N_BODIES, 72) or not torch.isfinite(x).all():
-            raise AssertionError(f"[knobs] {tag}: fitted bodies are not finite [N, 72]")
-        out[tag] = {"wall_s": wall, "peak_gb": peak, "launches": launches,
-                    "loss_first": h[0].mean().item(), "loss_last": h[-1].mean().item(),
-                    "final": {k: v.mean().item() for k, v in m.items()}}
-        return x, m, h
-
     # the default, with its final metrics pass (one more K1 and K3)
-    x0, m0, h0 = run("default", base, want_launches(kernels, n_iter + 1, n_iter, searches + 1))
-
-    # cheap_collision_verts: fused passes are those before the subset exists and the full ones after
-    w = min(base.refresh_warmup, n_iter)
-    fused = w + sum(kind == "full" for kind in kinds[w:])
-    xs_, ms, hs = run("cheap_collision_verts", dataclasses.replace(base, cheap_collision_verts=CHEAP_VERTS),
-                      want_launches(kernels, fused + 1 + 1, fused, searches + 1))  # + the scoring decode, + metrics
-    o = out["cheap_collision_verts"]
-    log(f"[knobs] cheap_collision_verts={CHEAP_VERTS}: {o['wall_s']:.4f} s (default {out['default']['wall_s']:.4f} s), launches "
-        f"{o['launches']} ({fused} fused passes + the scoring decode at {min(64, N_BODIES)} bodies + the metrics pass; the "
-        f"other {n_iter - fused} passes decode {assets.contact_vids.shape[0]} + <= {CHEAP_VERTS} rows through the 'fast' "
-        f"einsums); mean loss {o['loss_first']:.6f} -> {o['loss_last']:.6f} (over the subset on cheap passes); final "
-        f"full-vertex metrics " + ", ".join(f"{k} {v:.6f} (default {out['default']['final'][k]:.6f})" for k, v in o["final"].items())
-        + f"; peak {o['peak_gb']:.4f} GB; on {smi}")
-    if not o["loss_last"] < o["loss_first"]:
-        raise AssertionError("[knobs] cheap_collision_verts: the mean loss did not fall")
+    fit = make_fit_step(assets, base)
+    fit(*args)  # warm: the first call of a shape pays cuBLAS' and the allocator's set-up
+    (x0, m0, h0), launches, wall, peak = counted(kernels, lambda: fit(*args))
+    check_launches("[paths] default", launches, want_launches(kernels, n_iter + 1, n_iter, searches + 1))
+    if x0.shape != (N_BODIES, 72) or not torch.isfinite(x0).all():
+        raise AssertionError("[paths] default: fitted bodies are not finite [N, 72]")
+    out["default"] = {"wall_s": wall, "peak_gb": peak, "launches": launches,
+                      "loss_first": h0[0].mean().item(), "loss_last": h0[-1].mean().item(),
+                      "final": {k: v.mean().item() for k, v in m0.items()}}
 
     # the yardstick for a run of the same fit with sums taken in another order: how far the default's
     # fitted bodies move when its input moves by 1e-6 relative, here on the card at N=256 (phase 7
@@ -1446,55 +1419,13 @@ def check_knobs(dev, model, assets, x72_init, cam_ext, scene_idx, kernels, sens_
     moved = [plain(x72_init * (1.0 + sign * CROSS_PERTURB), cam_ext, scene_idx) for sign in (1.0, -1.0)]
     own_last = [h[-1].mean().item() for _, _, h in moved]
     moved = [(x - x0).abs() for x, _, _ in moved]
-    own_max, own_mean = max(d.max().item() for d in moved), max(d.mean().item() for d in moved)
-
-    # overlap_chunks: the same iterates, chunk after chunk
-    xc, mc, hc = run("overlap_chunks", dataclasses.replace(base, overlap_chunks=2),
-                     want_launches(kernels, 2 * n_iter + 1, 2 * n_iter, 2 * searches + 1))
-    d_x, d_mean, d_h = (xc - x0).abs().max().item(), (xc - x0).abs().mean().item(), (hc - h0).abs().max().item()
-    d_h0 = ((hc[0] - h0[0]).abs() / h0[0].abs().clamp(min=1e-6)).max().item()
-    # held on the mean: an axis-angle coordinate near pi wraps by 2 pi, so the largest of 256 x 72
-    # differences is one body's wrap on either side and is printed, not held
-    tol_mean = max(CROSS_MEAN_TOL, CROSS_SENS_FACTOR * own_mean)
-    o = out["overlap_chunks"]
-    o.update(max_diff_x72=d_x, mean_diff_x72=d_mean, max_diff_hist=d_h, iter0_rel_diff=d_h0,
-             own_sensitivity_max=own_max, own_sensitivity_mean=own_mean,
-             own_sensitivity_loss_last=own_last)
-    log(f"[knobs] overlap_chunks=2: {o['wall_s']:.4f} s (default {out['default']['wall_s']:.4f} s), launches {o['launches']}; "
-        f"difference to one chunk: iteration-0 loss {d_h0:.3e} relative (tol {CROSS_LOSS0_REL_TOL}), fitted x72 mean "
-        f"{d_mean:.3e} (tol {tol_mean:.3e}) max {d_x:.3e}, loss history max {d_h:.3e}, mean final loss "
-        f"{o['loss_last']:.6f} (default {out['default']['loss_last']:.6f}); the default's own drift for an input moved by "
-        f"1e-6 relative: mean {own_mean:.3e} max {own_max:.3e}, mean final loss {own_last[0]:.6f} and {own_last[1]:.6f} (on the CPU at {N_CROSS} bodies: max {sens_max:.3e}); "
-        f"peak {o['peak_gb']:.4f} GB; on {smi}")
-    if not (d_h0 <= CROSS_LOSS0_REL_TOL and d_mean <= tol_mean):
-        raise AssertionError("[knobs] overlap_chunks=2 drifts from one chunk beyond the fit's own sensitivity")
-    # the check the fit's chaos cannot reach: a chunk is a fit of its own bodies at its own batch size,
-    # with its own Adam moments and carried state, so each half of the two-chunk run must be the
-    # one-chunk fit of that half alone, the same operations at the same shapes: equal bits (the
-    # kernels and the library calls on the path are deterministic: phase 13's two runs differ by 0)
-    half = N_BODIES // 2
-    halves = [plain(*(a[lo:lo + half] for a in args)) for lo in (0, half)]
-    x_halves, h_halves = torch.cat([x for x, _, _ in halves]), torch.cat([h for _, _, h in halves], dim=1)
-    o["halves_max_diff_x72"] = (xc - x_halves).abs().max().item()
-    o["halves_max_diff_hist"] = (hc - h_halves).abs().max().item()
-    o["halves_bit_equal"] = torch.equal(xc, x_halves) and torch.equal(hc, h_halves)
-    log(f"[knobs] overlap_chunks=2 against the one-chunk fits of bodies 0-{half - 1} and {half}-{N_BODIES - 1} alone, all "
-        f"{n_iter} iterations: equal bits {o['halves_bit_equal']} (fitted x72 max |diff| {o['halves_max_diff_x72']:.3e}, loss "
-        f"history {o['halves_max_diff_hist']:.3e})")
-    if not o["halves_bit_equal"]:
-        raise AssertionError("[knobs] overlap_chunks=2: a chunk is not the fit of its own bodies alone")
-
-    # remat_decode: K1 again in every backward pass, equal bits
-    xr, mr, hr = run("remat_decode", dataclasses.replace(base, remat_decode=True),
-                     want_launches(kernels, 2 * n_iter + 1, n_iter, searches + 1))
-    same = torch.equal(xr, x0) and torch.equal(hr, h0) and all(torch.equal(mr[k], m0[k]) for k in m0)
-    o = out["remat_decode"]
-    o["bit_equal"] = same
-    log(f"[knobs] remat_decode: {o['wall_s']:.4f} s (default {out['default']['wall_s']:.4f} s), launches {o['launches']}; "
-        f"bit-equal to the default: {same}; peak device memory {o['peak_gb']:.4f} GB (default "
-        f"{out['default']['peak_gb']:.4f} GB); on {smi}")
-    if not same:
-        raise AssertionError("[knobs] remat_decode changed the fitted bits")
+    own = {"max": max(d.max().item() for d in moved), "mean": max(d.mean().item() for d in moved),
+           "loss_last": own_last}
+    out["own_sensitivity"] = own
+    log(f"[paths] default fit: {wall:.4f} s, launches {launches}, mean loss {h0[0].mean().item():.6f} -> "
+        f"{h0[-1].mean().item():.6f}, peak {peak:.4f} GB; its own drift for an input moved by {CROSS_PERTURB} relative: "
+        f"mean {own['mean']:.3e} max {own['max']:.3e}, mean final loss {own_last[0]:.6f} and {own_last[1]:.6f} (on the "
+        f"CPU at {N_CROSS} bodies: max {sens_max:.3e}); on {smi}")
 
     # make_generate_fit_rows: 4 snapshots x 64 rows, each group fitted in its own scene
     per = N_BODIES // ROWS_SNAPSHOTS
@@ -1510,21 +1441,21 @@ def check_knobs(dev, model, assets, x72_init, cam_ext, scene_idx, kernels, sens_
     rows(xs_stack, cam_int_stack, max_d_stack, req, cam_rows, req, generator=gen())
     (xg, _, hg), launches, wall, peak = counted(
         kernels, lambda: rows(xs_stack, cam_int_stack, max_d_stack, req, cam_rows, req, generator=gen()))
-    check_launches("[knobs] generate_fit_rows", launches, want_launches(kernels, n_iter, n_iter, searches))
+    check_launches("[paths] generate_fit_rows", launches, want_launches(kernels, n_iter, n_iter, searches))
     by_group = [(hg[0, g * per:(g + 1) * per].mean().item(), hg[-1, g * per:(g + 1) * per].mean().item())
                 for g in range(ROWS_SNAPSHOTS)]
     out["generate_fit_rows"] = {"wall_s": wall, "peak_gb": peak, "launches": launches, "loss_by_snapshot": by_group}
-    log(f"[knobs] make_generate_fit_rows, {ROWS_SNAPSHOTS} snapshots x {per} rows, scenes 0-{ROWS_SNAPSHOTS - 1}: {wall:.4f} s "
+    log(f"[paths] make_generate_fit_rows, {ROWS_SNAPSHOTS} snapshots x {per} rows, scenes 0-{ROWS_SNAPSHOTS - 1}: {wall:.4f} s "
         f"({N_BODIES / wall:.2f} bodies/s), launches {launches}; mean loss by snapshot "
         + ", ".join(f"{a:.6f} -> {z:.6f}" for a, z in by_group) + f"; on {smi}")
     if xg.shape != (N_BODIES, 72) or not torch.isfinite(xg).all() or not hg[-1].mean() < hg[0].mean():
-        raise AssertionError("[knobs] generate_fit_rows: bodies not finite [N, 72] or the mean loss not falling")
+        raise AssertionError("[paths] generate_fit_rows: bodies not finite [N, 72] or the mean loss not falling")
 
     # the carried-Adam mode: serial, a full pass every iteration at one body
     carry = make_fit_step_carry_opt_state(assets, base)
     small = tuple(a[:N_CARRY] for a in args)
     (xa, ma), launches, wall, peak = counted(kernels, lambda: carry(*small))
-    check_launches("[knobs] carried Adam", launches,
+    check_launches("[paths] carried Adam", launches,
                    want_launches(kernels, N_CARRY * n_iter + 1, N_CARRY * n_iter, N_CARRY * n_iter + 1))
     # what the inherited moments do is judged after 2 iterations, before the
     # 20-iteration fit's own sensitivity (phase 7) swamps a rounding-level difference
@@ -1536,12 +1467,12 @@ def check_knobs(dev, model, assets, x72_init, cam_ext, scene_idx, kernels, sens_
     d_rest = (xa2[1:] - xf2[1:]).abs().mean().item()
     out["carried_adam"] = {"wall_s": wall, "launches": launches, "n": N_CARRY, "first_body_vs_fresh": d0,
                            "later_bodies_vs_fresh": d_rest, "final_total": ma["total"].mean().item()}
-    log(f"[knobs] carried-Adam mode at N={N_CARRY} (serial: {N_CARRY * n_iter} passes at one body): {wall:.4f} s "
+    log(f"[paths] carried-Adam mode at N={N_CARRY} (serial: {N_CARRY * n_iter} passes at one body): {wall:.4f} s "
         f"({wall / (N_CARRY * n_iter) * 1e3:.2f} ms a pass), launches {launches}; final mean total "
         f"{ma['total'].mean().item():.6f}; after 2 iterations body 0 vs the fresh-state fit of full passes, mean |diff| {d0:.3e} "
         f"(the same moments at another batch size), bodies 1-{N_CARRY - 1} {d_rest:.3e} (inherited moments); on {smi}")
     if xa.shape != (N_CARRY, 72) or not torch.isfinite(xa).all() or not 10 * d0 < d_rest:
-        raise AssertionError("[knobs] carried Adam: bodies not finite, body 0 not the fresh fit's, or inherited "
+        raise AssertionError("[paths] carried Adam: bodies not finite, body 0 not the fresh fit's, or inherited "
                              "moments made no difference")
     return out
 
@@ -2288,7 +2219,7 @@ def check_dist(dev, model, model_cpu, assets, assets_cpu, xs, cam_int, max_d, ca
             f"launches {p['launches']['genfit']}, {_walls(p['walls_s']['genfit'])}; vs the unsharded call: iteration-0 "
             f"loss {p['iter0_rel']:.3e} relative (tol {CROSS_LOSS0_REL_TOL}), fitted x72 mean {p['fit_mean']:.3e} "
             f"(tol {tol_mean:.3e}: {CROSS_SENS_FACTOR} x the default's own drift for an input moved by "
-            f"{CROSS_PERTURB}, [knobs]) max {p['fit_max']:.3e}; GenerationEngine(mesh=) fitted request "
+            f"{CROSS_PERTURB}, [paths]) max {p['fit_max']:.3e}; GenerationEngine(mesh=) fitted request "
             f"{p['launches']['engine']}, {_walls(p['walls_s']['engine'])}, mean {p['engine_mean']:.3e} max "
             f"{p['engine_max']:.3e}; train step s1 batch {tcfg.batch_size} ({tcfg.batch_size // 2} a rank) "
             f"{_walls(p['walls_s']['train'])}: loss {p['loss_rel']:.3e} relative (tol {DIST_LOSS_REL_TOL}), largest "
@@ -3342,8 +3273,8 @@ def smoke(dev) -> None:
     # ---- 13. the file-driven path: TestOP -> files -> FittingOP -> files -> scorers
     drivers = check_drivers(dev, model, assets, batch, cam_ext, kernels, smi)
 
-    # ---- 14. the fit's knobs, the coalesced sampler in front of the fit, the carried-Adam mode
-    knobs = check_knobs(dev, model, assets, x72_pre, cam_ext, scene_idx, kernels, own[0], smi)
+    # ---- 14. the default fit's own drift, the coalesced sampler in front of the fit, the carried-Adam mode
+    paths = check_fit_paths(dev, model, assets, x72_pre, cam_ext, scene_idx, kernels, own[0], smi)
 
     # ---- 15. the serving path: engine, queue, router, soak, the CLI as a child process
     serve = check_serve(dev, model, assets, batch, cam_ext, kernels, want, smi)
@@ -3356,7 +3287,7 @@ def smoke(dev) -> None:
     try:
         native = check_native(dev, assets, contact, y_pruned, smi, workdir)
         dist_rec = check_dist(dev, model, model_cpu, assets, assets_cpu, xs, cam_int, max_d, cam_ext, scene_idx,
-                              batch, kernels, want, knobs["overlap_chunks"]["own_sensitivity_mean"], smi, workdir)
+                              batch, kernels, want, paths["own_sensitivity"]["mean"], smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3408,7 +3339,6 @@ def smoke(dev) -> None:
     for row, k in zip(rows[:3], kernels):
         row["launches_by_path"] = {"generate_fit_s1": launches[k.name], "generate_fit_s2": s2["launches"][k.name],
                                    "fit_files": drivers["launches"][k.name],
-                                   "fit_cheap_subset": knobs["cheap_collision_verts"]["launches"][k.name],
                                    "serve_single_fit": serve["launches_single_fit"][k.name],
                                    "serve_coalesced_fit": serve["launches_coalesced_fit"][k.name],
                                    "cli_fitting_proxe": cli["launches"]["fitting_proxe"][k.name],
@@ -3454,7 +3384,7 @@ def smoke(dev) -> None:
                     "k3_ffma": k3_ffma, "k3_pruned": k3["pruned"], "k3_full_cloud": k3["full"],
                     "k3_swapped": k3["swapped"], "hbm_gather": hbm, "sdf_ms_per_iter": sdf_ms, "eval": scores,
                     "train": train, "k3_train_shape": k3_train, "s2_slice": s2, "drivers": drivers,
-                    "knobs": knobs, "kernels_at_path_batches": path_batches, "serve": serve, "cli": cli,
+                    "fit_paths": paths, "kernels_at_path_batches": path_batches, "serve": serve, "cli": cli,
                     "native": native, "dist": dist_rec, "vposer": vposer, "snapshots": snaps, "exact": exact,
                     "soak": soak}))
     log(json.dumps({"kernels": rows}))

@@ -22,7 +22,6 @@ def body_vec_to_verts(
     x72: torch.Tensor,
     cam_ext: Optional[torch.Tensor] = None,
     precision: str = "high",
-    joints_direct: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     fused_bundle: Optional[SkinningBundle] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x72 [B, 72] -> (verts [B, V, 3], joints [B, J, 3]).
@@ -32,14 +31,9 @@ def body_vec_to_verts(
     or 'fused' (the fused skinning kernel, at the 'fast' tier, with
     transl and camera folded in). fused_bundle: precomputed
     ``make_fused_bundle(smplx)``; pass it inside an optimisation loop.
-    joints_direct: required when ``smplx`` is a ``smplx_vertex_subset``
-    model. Such a model falls back from 'fused' to 'fast' (the bf16-operand
-    einsums; no bundle is built for a subset).
     """
     p = body_params_encapsulate(x72)
     pose_aa = vposer_decode(vposer, p["body_pose_vp"])
-    if precision == "fused" and joints_direct is not None:
-        precision = "fast"
     if precision == "fused":
         return smplx_forward_fused(
             smplx,
@@ -61,6 +55,5 @@ def body_vec_to_verts(
         left_hand_pose=p["left_hand_pose"],
         right_hand_pose=p["right_hand_pose"],
         precision=precision,
-        joints_direct=joints_direct,
         cam_ext=cam_ext,
     )

@@ -136,7 +136,6 @@ def lbs(
     lbs_weights: torch.Tensor,
     exact: bool = False,
     precision: str = "high",
-    joints_direct: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     transl: Optional[torch.Tensor] = None,
     cam_ext: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,10 +144,7 @@ def lbs(
     betas [B, L]; pose_aa [B, J*3] (joint 0 = global orient); v_template
     [V, 3]; shapedirs [V, 3, L]; posedirs [(J-1)*9, V*3] or None;
     J_regressor [J, V]; lbs_weights [V, J]. exact: plain f32 for every
-    contraction, whatever ``precision`` says. joints_direct: the (j_template,
-    j_shapedirs) pair of ``joint_regressor_direct``; the joints then come
-    from betas directly, in f32 on every tier. Required when the per-vertex
-    tensors are a vertex subset of the model (J_regressor is then unused).
+    contraction, whatever ``precision`` says.
     transl [B, 3], cam_ext [B, 4, 4] (no gradient): when given, verts and
     joints are moved by transl, then through the extrinsics
     (``verts_transform``); the verts in the same pass as the skinning apply.
@@ -160,10 +156,7 @@ def lbs(
     J = len(parents)
 
     v_shaped = v_template[None] + blend_shapes(betas, shapedirs)
-    if joints_direct is not None:
-        j_template, j_shapedirs = joints_direct
-        joints = j_template[None] + blend_shapes(betas, j_shapedirs)
-    elif fast:
+    if fast:
         joints = vertices2joints(_bf16(J_regressor), _bf16(v_shaped))
     else:
         joints = vertices2joints(J_regressor, v_shaped)

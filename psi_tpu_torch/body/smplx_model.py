@@ -186,36 +186,6 @@ def synthetic_smplx(
     )
 
 
-def smplx_vertex_subset(
-    model: SMPLXModel, vert_ids: torch.Tensor
-) -> Tuple[SMPLXModel, Tuple[torch.Tensor, torch.Tensor]]:
-    """Slice the model to the rows ``vert_ids`` (repeats allowed).
-
-    Returns (sub_model, joints_direct): the per-vertex tensors (v_template,
-    shapedirs, exprdirs, posedirs, lbs_weights) keep only those rows, and
-    joints_direct is the full model's ``joint_regressor_direct`` pair, so
-    ``smplx_forward(sub_model, ..., joints_direct=joints_direct)`` gives the
-    full model's vertices at those rows. Used by the fit's cheap iterations
-    (FitConfig.cheap_collision_verts). faces are not remapped: the sub
-    model is for losses."""
-    vert_ids = vert_ids.to(torch.int64)
-    jd = joint_regressor_direct(model.J_regressor, model.v_template, model.shapedirs)
-    P = model.posedirs
-    if P is not None:
-        # posedirs is [(J-1)*9, V*3]: a vertex is three adjacent columns
-        P = P.reshape(-1, model.num_verts, 3)[:, vert_ids, :].reshape(P.shape[0], -1)
-    sub = dataclasses.replace(
-        model,
-        v_template=model.v_template[vert_ids],
-        shapedirs=model.shapedirs[vert_ids],
-        exprdirs=None if model.exprdirs is None else model.exprdirs[vert_ids],
-        posedirs=P,
-        J_regressor=model.J_regressor[:, vert_ids],  # unused with joints_direct
-        lbs_weights=model.lbs_weights[vert_ids],
-    )
-    return sub, jd
-
-
 def _assemble_pose_shape(
     model: SMPLXModel,
     global_orient: torch.Tensor,
@@ -272,11 +242,9 @@ def smplx_forward(
     leye_pose: Optional[torch.Tensor] = None,
     reye_pose: Optional[torch.Tensor] = None,
     precision: str = "high",
-    joints_direct: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cam_ext: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SMPL-X forward: body params -> (vertices [B, V, 3], joints [B, J, 3]).
-    joints_direct: see ``lbs``; required for a ``smplx_vertex_subset`` model.
     cam_ext [B, 4, 4] (no gradient): when given, both are returned through
     ``verts_transform(., cam_ext)``."""
     full_pose, shape_coeffs, shapedirs = _assemble_pose_shape(
@@ -286,7 +254,7 @@ def smplx_forward(
     return lbs(
         shape_coeffs, full_pose, model.v_template, shapedirs, model.posedirs,
         model.J_regressor, model.parents, model.lbs_weights, precision=precision,
-        joints_direct=joints_direct, transl=transl, cam_ext=cam_ext,
+        transl=transl, cam_ext=cam_ext,
     )
 
 

@@ -24,19 +24,8 @@ On the card the fused tier's decode runs kernels K1 (forward) and K2
 (backward) every iteration and the NN search runs kernel K3 on every
 full and nn_only pass.
 
-Three FitConfig fields, all off by default, change how the same fit runs:
-* ``cheap_collision_verts`` — after the warm-up the cached-SDF passes
-  decode only the contact vertices plus a vertex subset, through the
-  'fast' einsums (neither K1 nor K2), see ``_build_subset``;
-* ``overlap_chunks`` — the population is stepped as C equal chunks, each
-  with its own Adam moments and carried state; per-body results are the
-  batched program's, and the card runs the chunks one after the other;
-* ``remat_decode`` — the decode is recomputed in the backward pass
-  (``torch.utils.checkpoint``) instead of keeping its residuals: one more
-  K1 launch per pass on the fused tier.
-
 Under a profiler (``utils.profiling.span``) each iteration opens
-``psi.fit.pass.<kind>`` and, inside it for every chunk, ``psi.fit.decode``,
+``psi.fit.pass.<kind>`` and, inside it, ``psi.fit.decode``,
 ``psi.fit.contact``, ``psi.fit.collision``, ``psi.fit.backward`` and
 ``psi.fit.adam``; the sampler in front of a fit opens ``psi.sample``.
 
@@ -46,25 +35,26 @@ one per row), ``make_fit_step_carry_opt_state`` (the reference's Adam
 carried from body to body, serial) and ``FittingOP`` (numpy populations
 and the reference's ``body_gen_*.pkl`` files).
 
+Three of psi_tpu's fit modes (decode recomputation, population chunks and
+a vertex subset on the cheap passes) are refused when a fit is built with
+one switched on (``_check_config``): on the H100 each was slower than this
+one loop, and the subset also changed the iterates.
+
 On the card the fit replays a CUDA graph (``_FitProgram``): the first call
 with a given device, input shapes and dtypes and ``SceneAssets`` object runs
 as above, the second captures the whole call (every pass, its backward, Adam
 and the metrics pass) into one ``torch.cuda.CUDAGraph`` and replays it, and
 later calls only replay: one graph launch in place of some 36,500 kernel
 launches from the host, the same kernels in the same order. A replayed call
-opens one span, ``psi.fit.replay``, and none of the ones above. The CPU, a
-mesh and ``cheap_collision_verts > 0`` (whose subset is built from host
-arrays in the middle of the loop) stay eager.
+opens one span, ``psi.fit.replay``, and none of the ones above. The CPU and
+a mesh stay eager.
 
 Population sharding (``mesh=`` of ``make_fit_step``, ``make_generate_fit_step``
 and ``make_generate_fit_rows``; ``parallel/mesh.py``): every rank is given the
-whole population and fits its own rows [r N/R, (r+1) N/R) with the chunks
-above (``overlap_chunks`` splits a rank's rows). Each body's loss is its own,
-so no collective runs inside an iteration; the fitted rows, the metrics and
-the loss history are gathered at the end, and every rank returns the whole
-population's. One step reads across bodies: ``_build_subset`` scores the
-population's first ``N_SCORE`` rows, so those rows are gathered from the
-ranks that hold them and every rank builds the same subset.
+whole population and fits its own rows [r N/R, (r+1) N/R). Each body's loss
+is its own, so no collective runs inside an iteration; the fitted rows, the
+metrics and the loss history are gathered at the end, and every rank returns
+the whole population's.
 """
 
 from __future__ import annotations
@@ -78,10 +68,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from psi_tpu_torch.body.decode import body_vec_to_verts
-from psi_tpu_torch.body.smplx_model import make_fused_bundle, smplx_vertex_subset
+from psi_tpu_torch.body.smplx_model import make_fused_bundle
 from psi_tpu_torch.gen.sample import Model, generate_bodies, generate_bodies_rows
 from psi_tpu_torch.geometry.bodyvec import (
     body_params_encapsulate_list,
@@ -117,19 +106,12 @@ def _per_body_losses(
     sel=None,
     fresh_nn: Optional[bool] = None,
     fresh_sdf: Optional[bool] = None,
-    sub: Optional[Dict] = None,
     fused_bundle=None,
 ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor], Tuple]]:
     """Summed loss with per-body terms (reference fitting_proxe.py:101-162).
 
     sel=None is the full pass; sel=(y_nn, sdf_cache) with fresh_nn=True,
     fresh_sdf=False the nn_only pass; with both False the cheap pass.
-    sub (FitConfig.cheap_collision_verts; ``_build_subset``): passes that read
-    the carried cell cache decode only the subset model's rows, contact
-    vertices first and then the collision rows, and the collision term
-    averages over the collision rows only (counting the contact rows too
-    would raise their weight in the mean); a full pass still decodes every
-    vertex and slices the cache it emits to ``coll_rows``.
     Returns (sum, (metrics, (y_nn, sdf_cache))): per-body metrics [N] and
     the state the next passes carry (None entries when refresh is off).
     """
@@ -146,29 +128,13 @@ def _per_body_losses(
     xh = convert_to_3D_rot(xhr)  # [N, 72]
     loss_vposer = cfg.weight_loss_vposer * torch.mean(xh[:, 16:48] ** 2, dim=1)
 
-    use_sub = sub is not None and sel is not None and not fresh_sdf
-    if use_sub:
-        def decode(xh_):
-            return body_vec_to_verts(
-                sub["smplx"], assets.vposer, xh_, cam_ext,
-                precision=cfg.lbs_precision, joints_direct=sub["joints_direct"],
-            )[0]
-    else:
-        def decode(xh_):
-            return body_vec_to_verts(
-                assets.smplx, assets.vposer, xh_, cam_ext,
-                precision=cfg.lbs_precision, fused_bundle=fused_bundle,
-            )[0]
-
     with span("psi.fit.decode"):
-        if cfg.remat_decode:
-            # keep xh only; the backward pass runs the decode (K1 on the fused tier) again
-            verts = checkpoint(decode, xh, use_reentrant=False, preserve_rng_state=False)
-        else:
-            verts = decode(xh)
+        verts = body_vec_to_verts(
+            assets.smplx, assets.vposer, xh, cam_ext, precision=cfg.lbs_precision, fused_bundle=fused_bundle
+        )[0]
 
     with span("psi.fit.contact"):
-        contact_verts = verts[:, : sub["n_contact"], :] if use_sub else verts[:, assets.contact_vids, :]
+        contact_verts = verts[:, assets.contact_vids, :]
         if sel is not None and not fresh_nn:
             y_nn = sel[0]
             d1 = torch.sum((contact_verts - y_nn) ** 2, dim=-1)  # frozen correspondence
@@ -190,16 +156,13 @@ def _per_body_losses(
         dims = tuple(assets.sdf_packed.shape[1:4])
         if sel is not None and not fresh_sdf:
             sdf_cache = sel[1]
-            coll_verts = verts[:, sub["n_contact"]:, :] if use_sub else verts
             body_sdf = sdf_trilinear_from_cache(
-                sdf_cache, scene_idx, coll_verts, assets.grid_mins, assets.grid_maxs, dims
+                sdf_cache, scene_idx, verts, assets.grid_mins, assets.grid_maxs, dims
             )
         elif cfg.refresh_every > 1:
             body_sdf, (corners, base) = sdf_trilinear_packed_cached(
                 assets.sdf_packed, scene_idx, verts, assets.grid_mins, assets.grid_maxs
             )
-            if sub is not None:  # carry only the rows the subset's cheap passes read
-                corners, base = corners[:, sub["coll_rows"]], base[:, sub["coll_rows"]]
             sdf_cache = (corners.detach(), base.detach())
         else:
             body_sdf = sdf_trilinear_packed(
@@ -268,65 +231,6 @@ class Adam:
         return x + (-self.lr) * update
 
 
-N_SCORE = 64  # bodies whose penetration picks the subset's second half
-
-
-def _build_subset(assets: SceneAssets, cfg: FitConfig, x72_now, cam_ext, scene_idx, fused_bundle) -> Dict:
-    """The vertex subset of FitConfig.cheap_collision_verts, picked from the
-    population's state after the warm-up (x72_now, cam_ext and scene_idx
-    are the whole population's, at least its first ``N_SCORE`` rows).
-
-    Half of the row budget is a stride-uniform cover of the mesh. The other
-    half goes to the rows that carry the most penetration mass over the first
-    ``N_SCORE`` bodies, decoded once at ``cfg.lbs_precision`` (the collision
-    gradient flows only from penetrating vertices, so a uniform subset alone
-    would miss pockets between full passes). Equal masses, all the vertices
-    that penetrate nowhere among them, are taken lowest row first. The halves
-    are concatenated as they are: a row can stand in both. A budget of V or
-    more selects every vertex."""
-    V = assets.smplx.num_verts
-    dev = assets.smplx.v_template.device
-    s = min(cfg.cheap_collision_verts, V)
-    if s >= V:
-        coll_ids = torch.arange(V, dtype=torch.int64, device=dev)
-    else:
-        s_stride = s // 2
-        stride_ids = torch.from_numpy(
-            np.unique(np.round(np.linspace(0, V - 1, s_stride)).astype(np.int64))
-        ).to(dev)
-        n_score = min(N_SCORE, x72_now.shape[0])
-        verts0 = body_vec_to_verts(
-            assets.smplx, assets.vposer, x72_now[:n_score], cam_ext[:n_score],
-            precision=cfg.lbs_precision, fused_bundle=fused_bundle,
-        )[0]
-        sdf0 = sdf_trilinear_packed(
-            assets.sdf_packed, scene_idx[:n_score], verts0, assets.grid_mins, assets.grid_maxs
-        )
-        pen_mass = torch.sum(torch.minimum(sdf0, sdf0.new_zeros(())), dim=0)  # [V], <= 0
-        # a stable sort: torch.topk promises no order among equal values
-        pen_ids = torch.sort(-pen_mass, descending=True, stable=True).indices[: s - s_stride]
-        coll_ids = torch.cat([stride_ids, pen_ids])
-    rows = torch.cat([assets.contact_vids.to(torch.int64), coll_ids])
-    sub_model, jd = smplx_vertex_subset(assets.smplx, rows)
-    return {
-        "smplx": sub_model,
-        "joints_direct": jd,
-        "n_contact": int(assets.contact_vids.shape[0]),
-        "rows": rows,
-        "coll_rows": coll_ids,
-    }
-
-
-class _Chunk:
-    """One chunk of the population: its slice, iterate, Adam and carried state."""
-
-    def __init__(self, lo: int, hi: int, xhr_init: torch.Tensor, lr: float):
-        self.lo, self.hi = lo, hi
-        self.xhr = xhr_init[lo:hi].clone()
-        self.adam = Adam(self.xhr, lr)
-        self.sel = None
-
-
 # one capture at a time in the process: a capture must not record another thread's launches
 _CAPTURE_LOCK = threading.Lock()
 
@@ -366,19 +270,19 @@ class _Graph:
 class _FitProgram:
     """``fit`` of ``_fit_program``, replayed from a CUDA graph on the card.
 
-    A call is graphed when its tensors are on the card, there is no mesh and
-    ``cfg.cheap_collision_verts`` is 0. Its key is the device, the inputs'
-    shapes and dtypes and the ``SceneAssets`` object (held weakly: a new one
-    never meets an old graph). The program holds one graph: every caller
-    gives a program one key (a fixed population, one ``SceneAssets``), and a
-    new key takes the slot. The first call of a key runs eagerly, which also
-    warms what is built lazily (the kernel library, cuBLAS, the packed planes
-    of ``ops.precision.PACKS``); the second captures the call and replays it;
-    later calls copy their inputs into the graph's, replay it and return
-    clones of its outputs, never its buffers, with no synchronize. A packed
-    plane whose source changed in place since the capture drops the graph (the
-    call runs eagerly and repacks, the next one captures anew). A capture
-    that raises is warned of and its key stays eager."""
+    A call is graphed when its tensors are on the card and there is no mesh.
+    Its key is the device, the inputs' shapes and dtypes and the
+    ``SceneAssets`` object (held weakly: a new one never meets an old graph).
+    The program holds one graph: every caller gives a program one key (a
+    fixed population, one ``SceneAssets``), and a new key takes the slot. The
+    first call of a key runs eagerly, which also warms what is built lazily
+    (the kernel library, cuBLAS, the packed planes of ``ops.precision.PACKS``);
+    the second captures the call and replays it; later calls copy their
+    inputs into the graph's, replay it and return clones of its outputs,
+    never its buffers, with no synchronize. A packed plane whose source
+    changed in place since the capture drops the graph (the call runs eagerly
+    and repacks, the next one captures anew). A capture that raises is warned
+    of and its key stays eager."""
 
     def __init__(self, run: Callable, graphed: bool):
         self.run = run
@@ -448,23 +352,32 @@ class _FitProgram:
         return out
 
 
+def _check_config(cfg: FitConfig) -> None:
+    """Raise ValueError for a ``FitConfig`` the port does not run: an unknown
+    ``lbs_precision``, or one of psi_tpu's three fit modes switched on. Their
+    "off" values (``remat_decode`` false, ``overlap_chunks`` None or under 2,
+    ``cheap_collision_verts`` <= 0) are accepted."""
+    if cfg.lbs_precision not in LBS_PRECISIONS:
+        raise ValueError(f"lbs_precision must be one of {LBS_PRECISIONS}, got {cfg.lbs_precision!r}")
+    for name, on in (("remat_decode", bool(cfg.remat_decode)), ("overlap_chunks", int(cfg.overlap_chunks or 1) > 1),
+                     ("cheap_collision_verts", cfg.cheap_collision_verts > 0)):
+        if on:
+            raise ValueError(f"FitConfig.{name}={getattr(cfg, name)!r}: the port does not run this mode "
+                             "(slower than the default fit on the card); leave it off")
+
+
 def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> _FitProgram:
     """fit(assets, x72_init [N, 72], cam_ext [N, 4, 4], scene_idx [N]) ->
     (x72 [N, 72], final per-body metrics or None, loss_hist [num_iter, N]).
 
     loss_hist[i] is each body's total at iteration i, before its update.
     want_metrics=False skips the final full loss pass, which only reports
-    metrics (at full-vertex semantics, whatever subset the cheap passes
-    used); the fitted bodies are the same either way. With a mesh this rank
+    metrics; the fitted bodies are the same either way. With a mesh this rank
     fits its rows of the N it is given, and the results are gathered; N must
     divide evenly over the mesh. On the card, calls are replayed from CUDA
     graphs (``_FitProgram``)."""
-    if cfg.lbs_precision not in LBS_PRECISIONS:
-        raise ValueError(f"lbs_precision must be one of {LBS_PRECISIONS}, got {cfg.lbs_precision!r}")
+    _check_config(cfg)
     kinds = fit_schedule(cfg)
-    w = min(cfg.refresh_warmup, cfg.num_iter)
-    # the iteration before which the vertex subset is built, or None
-    subset_at = w if cfg.refresh_every > 1 and cfg.cheap_collision_verts > 0 and cfg.num_iter > w else None
 
     def fit(assets: SceneAssets, x72_init, cam_ext, scene_idx):
         scene_idx = scene_idx.to(torch.int64)
@@ -474,57 +387,34 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> _FitPr
             cam_r, sidx_r = cam_ext[lo_r:hi_r], scene_idx[lo_r:hi_r]
             # the fused kernels' constant operands: once per fit call
             bundle = make_fused_bundle(assets.smplx) if cfg.lbs_precision == "fused" else None
-            sub = None
 
-            def loss_fn(lo, hi, x, sel=None, fresh_nn=None, fresh_sdf=None):
-                return _per_body_losses(
-                    assets, x, xhr_init[lo:hi], cam_r[lo:hi], sidx_r[lo:hi], cfg,
-                    sel, fresh_nn, fresh_sdf, sub, bundle,
-                )
+            def loss_fn(x, sel=None, fresh_nn=None, fresh_sdf=None):
+                return _per_body_losses(assets, x, xhr_init, cam_r, sidx_r, cfg, sel, fresh_nn, fresh_sdf, bundle)
 
-            n = xhr_init.shape[0]
-            # overlap_chunks needs equal chunks; otherwise the batched program
-            C = max(1, int(cfg.overlap_chunks or 1))
-            if n % C:
-                C = 1
-            chunks = [_Chunk(n * ci // C, n * (ci + 1) // C, xhr_init, cfg.init_lr_h) for ci in range(C)]
+            xhr = xhr_init.clone()
+            adam = Adam(xhr, cfg.init_lr_h)
+            sel = None
             hist = []
-            for it, kind in enumerate(kinds):
+            for kind in kinds:
                 with span(f"psi.fit.pass.{kind}"):
-                    if it == subset_at:
-                        x_now = torch.cat([c.xhr for c in chunks]) if C > 1 else chunks[0].xhr
-                        if mesh is not None:  # the scoring rows may lie on other ranks
-                            x_now = gather_rows(x_now, mesh)
-                        sub = _build_subset(assets, cfg, convert_to_3D_rot(x_now), cam_ext, scene_idx, bundle)
-                        for c in chunks:
-                            if c.sel is not None:  # the warm-up carried every vertex's cells
-                                y_nn, (corners, base) = c.sel
-                                c.sel = (y_nn, (corners[:, sub["coll_rows"]], base[:, sub["coll_rows"]]))
-                    totals = []
-                    for c in chunks:
-                        x = c.xhr.detach().requires_grad_(True)
-                        with torch.enable_grad():
-                            if kind == "full":
-                                loss, (metrics, new_sel) = loss_fn(c.lo, c.hi, x)
-                            else:
-                                loss, (metrics, new_sel) = loss_fn(
-                                    c.lo, c.hi, x, c.sel, fresh_nn=kind == "nn_only", fresh_sdf=False
-                                )
-                            with span("psi.fit.backward"):
-                                (g,) = torch.autograd.grad(loss, x)
-                        with span("psi.fit.adam"):
-                            c.xhr = c.adam.step(c.xhr, g)
-                        if kind != "cheap":
-                            c.sel = new_sel
-                        totals.append(metrics["total"].detach())
-                    hist.append(totals[0] if C == 1 else torch.cat(totals))
+                    x = xhr.detach().requires_grad_(True)
+                    with torch.enable_grad():
+                        if kind == "full":
+                            loss, (metrics, new_sel) = loss_fn(x)
+                        else:
+                            loss, (metrics, new_sel) = loss_fn(x, sel, fresh_nn=kind == "nn_only", fresh_sdf=False)
+                        with span("psi.fit.backward"):
+                            (g,) = torch.autograd.grad(loss, x)
+                    with span("psi.fit.adam"):
+                        xhr = adam.step(xhr, g)
+                    if kind != "cheap":
+                        sel = new_sel
+                    hist.append(metrics["total"].detach())
             loss_hist = torch.stack(hist)
-            xhr = chunks[0].xhr if C == 1 else torch.cat([c.xhr for c in chunks])
             x72 = convert_to_3D_rot(xhr)
             final = None
             if want_metrics:
-                sub = None  # the reported losses are the reference's, over every vertex
-                _, (final, _) = loss_fn(0, n, xhr)
+                _, (final, _) = loss_fn(xhr)
                 final = {k: v.detach() for k, v in final.items()}
             if mesh is not None:
                 x72, loss_hist = gather_rows(x72, mesh), gather_rows(loss_hist, mesh, dim=1)
@@ -534,7 +424,7 @@ def _fit_program(cfg: FitConfig, want_metrics: bool = True, mesh=None) -> _FitPr
                     final = dict(zip(names, stacked.unbind(dim=1)))
             return x72, final, loss_hist
 
-    return _FitProgram(fit, graphed=mesh is None and cfg.cheap_collision_verts <= 0)
+    return _FitProgram(fit, graphed=mesh is None)
 
 
 def make_fit_step(assets: SceneAssets, cfg: FitConfig, want_metrics: bool = True, mesh=None) -> Callable:
@@ -612,8 +502,7 @@ def make_fit_step_carry_opt_state(assets: SceneAssets, cfg: FitConfig) -> Callab
 
     Returns fit(x72_init [N, 72], cam_ext [N, 4, 4], scene_idx [N]) ->
     (x72 [N, 72], final per-body metrics): two values, no loss history."""
-    if cfg.lbs_precision not in LBS_PRECISIONS:
-        raise ValueError(f"lbs_precision must be one of {LBS_PRECISIONS}, got {cfg.lbs_precision!r}")
+    _check_config(cfg)
 
     def fit(x72_init, cam_ext, scene_idx):
         scene_idx = scene_idx.to(torch.int64)

@@ -73,7 +73,7 @@ def build(assets: SceneAssets, cfg: FitConfig, fresh_nn: bool, fresh_sdf: bool, 
                                           precision=cfg.lbs_precision, fused_bundle=fb)[0]
                     return torch.sum(v * 1e-3)
                 return _per_body_losses(assets, x, xhr_init, cam_ext, scene_idx, cfg, (y_nn, cache),
-                                        fresh_nn, fresh_sdf, None, fb)[0]
+                                        fresh_nn, fresh_sdf, fb)[0]
 
             adam = Adam(xhr, cfg.init_lr_h)
             for _ in range(num_iter):

@@ -3,8 +3,9 @@
 The fields, defaults and constructors are psi_tpu's, unchanged, so one
 ``FitConfig`` drives both packages in the parity tests (reference:
 source/train_s1.py:345-423). The comments describe what each field
-selects in this package; every ``FitConfig`` field is honoured by
-``fit/fitting.py``.
+selects in this package. ``fit/fitting.py`` honours every ``FitConfig``
+field except three of psi_tpu's fit modes, which it refuses when a fit is
+built with one of them switched on (their comments say why).
 """
 
 from __future__ import annotations
@@ -100,12 +101,10 @@ class FitConfig:
     # search, selected tile-granularly over the Morton-ordered scene
     # cloud (ops/prune.py::select_near_tiles). 0 = the full cloud.
     prune_scene_points: int = 2048
-    # recompute the VPoser-decode -> LBS chain in the backward pass instead
-    # of keeping its residuals (torch.utils.checkpoint around the decode).
-    # The fitted bodies are the same; on the fused tier each pass launches
-    # the forward kernel a second time. On the H100 this is slower than the
-    # default and saves almost no memory (PERF.md section 6, the knobs): kept
-    # for parity of configs, not a setting to tune with.
+    # psi_tpu: recompute the decode in the backward pass instead of keeping
+    # its residuals. The port refuses True: on the H100 it gave the same bits
+    # 1.28-1.84x slower and saved no memory. Kept so that one config file
+    # serves both packages.
     remat_decode: bool = False
     # selection-refresh mode (refresh_every > 1): a FULL loss pass (NN
     # search over the pruned cloud, packed-grid SDF gather per vertex)
@@ -134,25 +133,18 @@ class FitConfig:
     # iteration-0 cell cache for collision (the nn_only pass kind). Only
     # consulted when refresh_every > 1.
     sdf_warmup_gathers: bool = False
-    # Vertex-subset cheap iterations: K > 0 decodes, on the passes after
-    # the warm-up that read the carried SDF cells, only the contact
-    # vertices plus K collision rows (half a uniform stride over the mesh,
-    # half the rows with the most penetration over the first 64 bodies
-    # after the warm-up), through the 'fast' einsums; the collision term
-    # averages over the K rows. Full passes and the final metrics keep
-    # every vertex. 0 = every vertex on every pass (reference semantics);
-    # K >= the vertex count selects every row. Changes the iterates: opt-in.
-    # On the H100 the fit is bound by the host's launches, not by rows, and
-    # this buys no time (PERF.md section 6, the knobs): not a setting to tune
-    # with before the fit's launches are replayed from a CUDA graph.
+    # psi_tpu: K > 0 decodes only the contact vertices plus K collision
+    # rows on the passes that read the carried SDF cells. The port refuses
+    # K > 0: on the H100 it was no faster (0.96-1.12x the default's time),
+    # left the fit 4.3% worse, and its subset, built from host arrays in the
+    # middle of the loop, cannot join the fit's CUDA graph. Kept so that one
+    # config file serves both packages.
     cheap_collision_verts: int = 0
-    # Step the population as C equal chunks inside every fit iteration,
-    # each with its own Adam moments and carried state; per-body results
-    # are the batched program's. The chunks run one after the other (C
-    # times the launches of an iteration). 1 disables; a population that C
-    # does not divide runs as one chunk. On the H100 every C > 1 is slower
-    # than the default, about in step with the launches (PERF.md section 6,
-    # the knobs): kept for parity of configs, not a setting to tune with.
+    # psi_tpu: step the population as C chunks, each with its own Adam, in
+    # every iteration. The port refuses C > 1: each body's fit is its own, so
+    # the chunks give the batched fit's bodies, and on the H100 C = 2 took
+    # 1.68-2.37x the default's time. Kept so that one config file serves
+    # both packages.
     overlap_chunks: int = 1
 
     @classmethod

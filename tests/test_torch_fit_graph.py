@@ -4,7 +4,7 @@ On the CPU a test double stands in for ``torch.cuda.CUDAGraph`` and
 ``torch.cuda.graph``: a capture runs the call once and keeps it, and a replay
 runs it again on the static inputs and writes the results into the captured
 outputs in place, as a replay overwrites a graph's buffers. With it: which calls
-are never graphed (CPU tensors, a mesh, ``cheap_collision_verts > 0``), what
+are never graphed (CPU tensors, a mesh), what
 tells keys apart (N, a dtype, the ``SceneAssets`` object), eager then capture
 then replay, a new key taking the program's one graph slot, a packed plane whose
 source changed in place dropping the graph, a capture keeping only the planes it
@@ -137,18 +137,13 @@ def stats(prog):
     return s["eager"], s["captures"], s["replays"], s["failed_captures"]
 
 
-def cheap_subset():
-    return FitConfig.production(num_iter=4, refresh_every=2, refresh_warmup=1, cheap_collision_verts=40)
-
-
-@pytest.mark.parametrize("case", ["cpu", "mesh", "cheap_collision_verts"])
+@pytest.mark.parametrize("case", ["cpu", "mesh"])
 def test_never_graphed(monkeypatch, assets, case):
-    cfg = cheap_subset() if case == "cheap_collision_verts" else EXACT
     mesh = None
     if case == "mesh":
         mesh = Mesh(rank=0, size=1, device=torch.device("cpu"), group=None, backend="gloo")
         monkeypatch.setattr(fitting, "gather_rows", lambda x, mesh, dim=0: x)
-    prog = fitting._fit_program(cfg, want_metrics=False, mesh=mesh)
+    prog = fitting._fit_program(EXACT, want_metrics=False, mesh=mesh)
     eager = prog.run
     if case != "cpu":
         Card(monkeypatch, prog)

@@ -11,7 +11,9 @@ placed in the scenes' floors) at the scripts' 20 iterations.
   ``make_fit_step`` with the same FitConfig fields.
 * The port's ``fit_schedule`` is the pass kinds psi_tpu's fit runs, read
   from inside psi_tpu's compiled fit (a ``jax.debug.callback`` in its
-  ``_per_body_losses``), for refresh_every 1, 10, 15 and 20.
+  ``_per_body_losses``), for refresh_every 1, 10, 15 and 20, and at
+  refresh_every 10 with no warm-up, a warm-up of one, a warm-up of gathers,
+  fewer iterations than the warm-up, and refresh blocks with no tail.
 * Each of ``profile_segments``' four segments, two Adam steps, against the
   same segment built from psi_tpu's ``_per_body_losses`` and
   ``optax.adam``.
@@ -172,9 +174,20 @@ def _jax_schedule(monkeypatch, world, cfg):
     return kinds
 
 
-@pytest.mark.parametrize("refresh_every", [1, 10, 15, 20])
-def test_fit_schedule_is_psi_tpus(world, monkeypatch, refresh_every):
-    cfg = FitConfig.production(num_iter=NUM_ITER, refresh_every=refresh_every, lbs_precision="fast")
+# keyword sets over FitConfig.production(num_iter=NUM_ITER, lbs_precision="fast"): the
+# cadences, no warm-up, a warm-up of one, a warm-up of gathers, a fit shorter than its
+# warm-up, and one whose refresh blocks fill it with no tail
+SCHEDULES = {
+    "1": dict(refresh_every=1), "10": dict(refresh_every=10), "15": dict(refresh_every=15),
+    "20": dict(refresh_every=20), "no_warmup": dict(refresh_warmup=0), "warmup_1": dict(refresh_warmup=1),
+    "warmup_gathers": dict(sdf_warmup_gathers=True), "shorter_than_warmup": dict(num_iter=3),
+    "no_tail_block": dict(num_iter=24),
+}
+
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_fit_schedule_is_psi_tpus(world, monkeypatch, schedule):
+    cfg = FitConfig.production(**{"num_iter": NUM_ITER, "lbs_precision": "fast", **SCHEDULES[schedule]})
     assert fit_schedule(cfg) == _jax_schedule(monkeypatch, world, cfg)
 
 

@@ -15,7 +15,6 @@ multiple of a block's body tile, vertices not a multiple of a vertex
 tile, clouds not a multiple of a shared-memory tile.
 """
 
-import dataclasses
 import math
 
 import numpy as np
@@ -33,9 +32,8 @@ torch.set_num_threads(1)
 # one that spans several of K1's and K2's body and vertex tiles (32 x 32 in
 # K1 and the coefficient pass, 64-row blocks in the reductions), has more
 # than 64 bodies but no multiple of 32, and is ragged on every padded axis
-# (bodies to 64, vertices to 256, basis rows to 64); then the two body counts
-# the fit's drivers add: 64 (the subset's one-time scoring decode, exactly two
-# body tiles) and 1 (the carried-Adam mode's serial loop, K1 and K2)
+# (bodies to 64, vertices to 256, basis rows to 64); then 64 bodies (exactly
+# two body tiles) and 1 (the carried-Adam mode's serial loop, K1 and K2)
 SKIN_SHAPES = [(5, 300, 12), (13, 1001, 55), (130, 2051, 55), (64, 2051, 55), (1, 2051, 55)]
 # K1 also at a shape smaller than one tile on every axis
 K1_SHAPES = SKIN_SHAPES + [(1, 17, 3)]
@@ -699,7 +697,7 @@ def test_trainop_defaults_to_the_card_and_resumes_there(card, tmp_path):
                        torch.randn(3, generator=op2.state.generator, device=card))
 
 
-# ---- the fit's knobs and drivers on the card
+# ---- the file-driven fit and the carried-Adam mode on the card
 
 def _fit_world(dev, n=6):
     from psi_tpu_torch.data.synthetic import make_synthetic_assets
@@ -716,68 +714,6 @@ def _fit_world(dev, n=6):
 
 def _skin_launches():
     return tfs.SKIN_FWD.launches, tfs.SKIN_BWD.launches, tch.NN_ARGMIN.launches
-
-
-@pytest.mark.cuda
-def test_remat_decode_launches_k1_twice_a_pass_and_keeps_the_bits(card):
-    """torch.utils.checkpoint reruns the autograd function's forward in the
-    backward pass: K1 itself, not its twin. K1 and K2 are bit-equal run to
-    run, so the fitted bodies are too."""
-    from psi_tpu_torch.fit.fitting import make_fit_step
-    from psi_tpu_torch.utils.config import FitConfig
-
-    assets, x72, cam, sidx = _fit_world(card)
-    kw = dict(num_iter=5, refresh_every=3, refresh_warmup=1, prune_scene_points=256)
-    out = {}
-    for remat in (False, True):
-        before = _skin_launches()
-        out[remat] = make_fit_step(assets, FitConfig.production(remat_decode=remat, **kw), want_metrics=False)(x72, cam, sidx)
-        after = _skin_launches()
-        # passes: full, full, cheap, cheap, full
-        assert tuple(a - b for a, b in zip(after, before)) == ((10 if remat else 5), 5, 3)
-    assert torch.equal(out[True][0], out[False][0]) and torch.equal(out[True][2], out[False][2])
-
-
-@pytest.mark.cuda
-def test_subset_and_chunks_launch_counts_on_the_card(card):
-    """cheap_collision_verts: the warm-up pass and the two full passes are
-    fused (K1, K2, K3 each), the scoring decode is one more K1, the cheap
-    passes launch nothing of ours. overlap_chunks=2 doubles every count."""
-    from psi_tpu_torch.fit.fitting import make_fit_step
-    from psi_tpu_torch.utils.config import FitConfig
-
-    assets, x72, cam, sidx = _fit_world(card)
-    kw = dict(num_iter=5, refresh_every=3, refresh_warmup=1, prune_scene_points=256)
-    for extra, want in ((dict(cheap_collision_verts=64), (3 + 1, 3, 3)), (dict(overlap_chunks=2), (10, 10, 6)),
-                        (dict(cheap_collision_verts=64, overlap_chunks=2), (6 + 1, 6, 6))):
-        before = _skin_launches()
-        x, _, hist = make_fit_step(assets, FitConfig.production(**kw, **extra), want_metrics=False)(x72, cam, sidx)
-        assert tuple(a - b for a, b in zip(_skin_launches(), before)) == want, extra
-        assert torch.isfinite(x).all() and hist.shape == (5, x72.shape[0])
-
-
-@pytest.mark.cuda
-def test_subset_rows_on_the_card_equal_the_cpus_with_ties(card):
-    """Bodies lifted until ~18 of 300 vertices dip under the one plane below
-    which the SDF is negative: the other masses are exactly 0 and the
-    32-row penetration half is part ties. torch.topk on the card would not
-    give the lowest rows; the stable sort does, as on the CPU."""
-    from psi_tpu_torch.fit.fitting import _build_subset
-    from psi_tpu_torch.utils.config import FitConfig
-
-    cfg = FitConfig.production(cheap_collision_verts=64, lbs_precision="high")
-    rows = {}
-    for dev in (torch.device("cpu"), card):
-        assets, x72, cam, sidx = _fit_world(dev)
-        cam[:, 1, 3] += 1.0
-        flat = torch.full_like(assets.sdf_packed, 1.0)
-        flat[:, :, :2] = -1.0  # negative under one horizontal plane only
-        assets = dataclasses.replace(assets, sdf_packed=flat)
-        with torch.no_grad():
-            rows[dev.type] = _build_subset(assets, cfg, x72, cam, sidx, None)["coll_rows"].cpu()
-    assert torch.equal(rows["cuda"], rows["cpu"])
-    ties = rows["cpu"][-8:]
-    assert bool((ties[1:] > ties[:-1]).all())  # the tie run ascends from the lowest row
 
 
 @pytest.mark.cuda

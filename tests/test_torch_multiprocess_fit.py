@@ -6,7 +6,7 @@ same inputs.
 
 World: ``tests/test_torch_fit.py``'s (N=4 bodies, V=300, J=12, 2 scenes,
 16^3 bf16 grids, 512 scene points, 32 contact verts; production tier at 6
-iterations), so each rank fits 2 rows. The ranks are
+iterations, and one fit at the exact tier), so each rank fits 2 rows. The ranks are
 ``psi_tpu_torch/scripts/multiprocess_worker.py`` processes joined through a
 file store under the test's own tmp_path, one torch thread each, and joined
 under WORKER_TIMEOUT_S (a hung or failed rank fails the test).
@@ -22,8 +22,6 @@ Tolerances:
   1e-3 relative + 2e-5 absolute;
 * the engine: tests/test_serve_mesh.py's, fitted 5e-3, generate-only 1e-5.
 """
-
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +41,6 @@ torch.set_num_threads(1)
 WORKER_TIMEOUT_S = 240
 CFG = FitConfig.production(**PRODUCTION)
 LR = CFG.init_lr_h
-CHEAP_N, CHEAP_S = 8, 48  # two ranks of 4: N_SCORE's first 64 rows are all 8, on both ranks
 SHARD_TOL = dict(max=2.5 * LR, mean=1e-4, metrics=1e-4)
 ENGINE = dict(population=N, fit_cfg=FitConfig(num_iter=3), seed=7)
 
@@ -64,12 +61,8 @@ def _inputs(world):
     rows_xs = np.concatenate([b["xs"], b["xs"][:, ::-1]], 0)  # two snapshots, the second flipped
     rows = dict(xs=_t(rows_xs), cam_int=_t(np.repeat(b["cam_int"], 2, 0)), max_d=_t(np.array([6.0, 4.0], np.float32)),
                 req=_t(np.array([0, 1, 1, 0], np.int64)))
-    # CHEAP_N bodies: the world's four and the same four shifted, all in their scenes' floors
-    x8 = np.concatenate([world["x72"], world["x72"] + np.float32(0.05)], 0)
-    cam8 = np.concatenate([world["cam"], world["cam"]], 0)
-    cam8[N:, 1, 3] += np.float32(0.3)
     return dict(x72=_t(world["x72"]), cam=_t(world["cam"]), sidx=_t(world["sidx"]), b=b, rows=rows,
-                eps=_t(world["eps"]), x8=_t(x8), cam8=_t(cam8), sidx8=_t(np.tile(world["sidx"], 2)))
+                eps=_t(world["eps"]))
 
 
 def _calls(world):
@@ -83,8 +76,9 @@ def _calls(world):
         dict(name="genfit", kind="generate_fit_step", cfg=CFG, n=N, args=(*snap, i["cam"], i["sidx"]), eps=i["eps"]),
         dict(name="rows", kind="generate_fit_rows", cfg=CFG,
              args=(r["xs"], r["cam_int"], r["max_d"], r["req"], i["cam"], i["sidx"]), eps=i["eps"]),
-        dict(name="cheap", kind="fit_step", cfg=dataclasses.replace(CFG, cheap_collision_verts=CHEAP_S),
-             args=(i["x8"], i["cam8"], i["sidx8"])),
+        dict(name="exact", kind="fit_step", cfg=FitConfig.exact(num_iter=CFG.num_iter,
+                                                               prune_scene_points=CFG.prune_scene_points),
+             args=(i["x72"], i["cam"], i["sidx"])),
         dict(name="engine", kind="engine", **ENGINE, requests=[
             ("generate", dict(batch=_snapshot(), fit=True, scene_idx=1)),
             ("generate_coalesced", dict(requests=reqs, fit=True)),
@@ -125,7 +119,7 @@ def _assert_shard_bounds(got, ref):
         torch.testing.assert_close(m[k], mr[k], rtol=SHARD_TOL["metrics"], atol=SHARD_TOL["metrics"], msg=k)
 
 
-@pytest.mark.parametrize("name", ["fit", "genfit", "rows", "cheap"])
+@pytest.mark.parametrize("name", ["fit", "genfit", "rows", "exact"])
 def test_sharded_fit_matches_the_unsharded_call(world, sharded, name):
     calls, ranks = sharded
     for r in ranks:  # every rank returns the whole population's results
@@ -146,22 +140,6 @@ def test_sharded_fit_matches_psi_tpu(world, sharded):
         np.testing.assert_allclose(res["hist"].numpy()[0], np.asarray(hj)[0], rtol=1e-4, atol=0)
         for k in ("rec", "vposer", "contact", "collision", "total"):
             np.testing.assert_allclose(res["metrics"][k].numpy(), np.asarray(mj[k]), rtol=1e-3, atol=2e-5, err_msg=k)
-
-
-def test_subset_scores_rows_of_both_ranks(world, sharded):
-    """With N=8 over two ranks, N_SCORE's rows span both. A rank that built its
-    subset from its own 4 rows would fit each half as the unsharded fit of that
-    half alone does: that result is far outside the bound the sharded run
-    meets, so the test would fail on it."""
-    calls, ranks = sharded
-    call = calls["cheap"]
-    ref = _unsharded(world, call)
-    _assert_shard_bounds((ranks[0]["cheap"]["x72"], ranks[0]["cheap"]["metrics"], ranks[0]["cheap"]["hist"]), ref)
-    x8, cam8, sidx8 = call["args"]
-    own = [make_fit_step(world["assets"]["bf16"][1], call["cfg"])(x8[s], cam8[s], sidx8[s])[0]
-           for s in (slice(0, CHEAP_N // 2), slice(CHEAP_N // 2, CHEAP_N))]
-    d_own = (torch.cat(own) - ref[0]).abs()
-    assert d_own.mean() > 10 * SHARD_TOL["mean"], f"a per-rank subset would pass: mean drift {d_own.mean()}"
 
 
 def test_sharded_engine_matches_the_single_engine(world, sharded):

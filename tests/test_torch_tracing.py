@@ -196,7 +196,7 @@ def test_the_innermost_span_takes_the_idle_time():
 
 def test_nothing_to_read_gives_none():
     names = [m["name"] for m in bench()["per_layer"] if m["name"].startswith(("idle_pct.", "host_ms_per_"))]
-    assert len(names) == 12
+    assert names
     no_device = view([], GENFIT_SPANS + TRAIN_SPANS, CALLS)
     no_spans = view(KERNELS, [], CALLS)  # a program that opens none
     for name in names:
